@@ -1,7 +1,7 @@
-"""gnuradio4_tpu — a TPU-native stream/signal-processing framework.
+"""gnuradio4_tpu — a device-native stream/signal-processing framework.
 
 Brand-new design with the capabilities of GNU Radio 4 (fair-acc/gnuradio4, the
-C++23 reference at /root/reference), rebuilt idiomatically on JAX/XLA/Pallas:
+C++23 reference), rebuilt idiomatically on JAX/XLA:
 
 - blocks are array-level kernels over fixed-shape time blocks ``[channels, T]``;
 - the flowgraph is traced into ONE jitted XLA program per scheduler step (XLA fuses
@@ -13,6 +13,8 @@ C++23 reference at /root/reference), rebuilt idiomatically on JAX/XLA/Pallas:
 - settings are staged/contextual; dynamic ones are runtime args (no recompile);
 - multi-chip scaling uses jax.sharding Mesh + shard_map collectives (parallel/).
 """
+
+import os as _os
 
 from .core.block import (Block, BlockCtx, HostCtx, Port, PortRef, SinkBlock,
                          SourceBlock, UICategory)
@@ -48,6 +50,21 @@ from . import blocks  # noqa: E402,F401
 from . import ops, parallel, utils  # noqa: E402,F401
 
 __version__ = "0.1.0"
+
+
+def _refuse_renamed_env() -> None:
+    """The environment switches (``GR4_FIR_PRECISION``, ``GR4_FIR_TILE``,
+    ``GR4_FFT_ENGINE``, ...) once had the prefix ``GR4TPU_``. A switch still
+    set under its old name would be ignored without a word, so it is an
+    error."""
+    old = sorted(k for k in _os.environ if k.startswith("GR4TPU_"))
+    if old:
+        new = ["GR4_" + k[len("GR4TPU_"):] for k in old]
+        raise GrError(f"environment variables {old} are no longer read: "
+                      f"set {new} instead")
+
+
+_refuse_renamed_env()
 
 __all__ = [
     "Block", "BlockCtx", "HostCtx", "Port", "PortRef", "SinkBlock", "SourceBlock",

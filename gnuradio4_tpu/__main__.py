@@ -173,8 +173,14 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     if args.cmd == "run":
+        import jax
         from .core.yaml_io import load_grc
         from .core.scheduler import Scheduler
+        from .utils.compile_cache import enable_compile_cache
+        enable_compile_cache()
+        dev = jax.devices()[0]
+        print(f"platform: {dev.platform} ({dev.device_kind}, "
+              f"{len(jax.devices())} device(s))", file=sys.stderr)
         with open(args.flowgraph) as f:
             g = load_grc(f.read())
         meta = getattr(g, "yaml_meta", {})

@@ -1,7 +1,7 @@
 """Acquisition blocks: StreamToDataSet windows + DataSetSink
 (≈ reference blocks/basic StreamToDataSet.hpp:27, DataSink.hpp DataSetSink).
 
-TPU-native shape: DataSet assembly is host-side egress (device streams carry only
+Device-native shape: DataSet assembly is host-side egress (device streams carry only
 dense sample blocks); the trigger windowing reuses the DataSink poller machinery,
 so a StreamToDataSet is a sink whose ``datasets`` queue yields the captured
 windows — the same capability surface as the reference's DataSet stream feeding a

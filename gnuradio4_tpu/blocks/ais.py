@@ -7,7 +7,7 @@ and DPLL machinery is reused verbatim. On top rides the 168-bit Class-A
 position report (message types 1-3): MMSI, navigation status, rate of turn,
 SOG, position in 1/10000 arc-minutes, COG, heading, timestamp.
 
-TPU-native split (the same shape as the RDS/ADS-B/AX.25 families): waveform
+Device/host split (the same shape as the RDS/ADS-B/AX.25 families): waveform
 synthesis and the FM discriminator run as device math (GMSK synthesis here,
 QuadratureDemod in-graph); bit-clock recovery, HDLC deframing and bitfield
 decode are O(bits) host work inside the :class:`AisDecoder` sink.

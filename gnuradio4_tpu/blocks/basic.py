@@ -193,7 +193,7 @@ class ComplexToneSource(SignalGenerator):
 @register_block("NoiseSource")
 class NoiseSource(SourceBlock):
     """Gaussian/uniform noise source generated on-device (≈ NoiseGenerator +
-    Xoshiro256pp; here counter-based threefry so the VPU generates in parallel)."""
+    Xoshiro256pp; here counter-based threefry so the device generates in parallel)."""
 
     OUT = (Port("out"),)
     noise = Setting(default="gaussian", kind="static",

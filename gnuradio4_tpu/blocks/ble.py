@@ -14,7 +14,7 @@ x^6 + x^4 + x^3 + x + 1 with init 0x555555 on advertising channels
 (section 3.1.1, fig 3.4).  Advertising channels are 37 (2402 MHz),
 38 (2426 MHz), 39 (2480 MHz).
 
-TPU-native split (the receiver-family pattern, see blocks/ais.py /
+Device/host split (the receiver-family pattern, see blocks/ais.py /
 pocsag.py): waveform synthesis is a vectorized Gaussian-shaped
 phase-integration timeline (:func:`gfsk_modulate`); the receiver consumes
 an FM-discriminator stream (``QuadratureDemod`` output) in the

@@ -4,7 +4,7 @@ PARIS timing: dot = 1 unit, dash = 3, intra-character gap = 1, letter gap =
 3, word gap = 7; a unit is ``1.2 / wpm`` seconds. Keying edges are raised-
 cosine shaped (~5 ms) to bound the occupied bandwidth, as real keyers do.
 
-TPU-native split (the family pattern, blocks/rtty.py): synthesis is a
+Device/host split (the family pattern, blocks/rtty.py): synthesis is a
 vectorized keying envelope times a tone; the receiver is the
 :class:`CwDecoder` sink — magnitude envelope, adaptive threshold, run-length
 classification with the unit time estimated from the mark-length histogram

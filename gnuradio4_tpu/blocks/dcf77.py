@@ -9,7 +9,7 @@ day-of-month (36-41), day-of-week (42-44), month (45-49), year-of-century
 (50-57), date parity 58 over bits 36-57; bit 0 is always 0, bit 20 (start of
 encoded time) always 1; bits 17/18 flag CEST/CET.
 
-TPU-native split (the family pattern): carrier synthesis and AM envelope
+Device/host split (the family pattern): carrier synthesis and AM envelope
 detection are device math (the stimulus here, ``ComplexToneSource →
 Multiply`` or any AM front end in-graph); the per-second pulse-width
 classification and BCD decode are O(seconds) host work in the

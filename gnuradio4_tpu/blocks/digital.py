@@ -85,7 +85,7 @@ class OfdmModulator(Block):
 
 @register_block("RrcFilter")
 class RrcFilter(Block):
-    """Root-raised-cosine pulse shaping / matched filter (MXU FIR path)."""
+    """Root-raised-cosine pulse shaping / matched filter (matmul FIR path)."""
 
     IN = (Port("in"),)
     OUT = (Port("out"),)
@@ -355,7 +355,7 @@ class DiffDecoder(Block):
 @register_block("PreambleCorrelator")
 class PreambleCorrelator(Block):
     """Burst/preamble detection: correlates against a known symbol sequence
-    on-device (MXU frames matmul), emits the stream unchanged on ``out`` and
+    on-device (framed matmul), emits the stream unchanged on ``out`` and
     a fixed-capacity detection record ``[2, max_det]`` (row 0: in-step index,
     row 1: normalized correlation magnitude) on ``det``.
 

@@ -294,11 +294,11 @@ class FllBandEdge(Block):
     bandwidth using the energy difference between upper/lower band-edge
     filters of the matched (RRC) pulse.
 
-    TPU-native design: instead of the per-sample loop (O(T·K) sequential),
+    Design: instead of the per-sample loop (O(T·K) sequential),
     the loop updates once per ``subblock`` samples — each sub-block is
     de-rotated, run through both band-edge filters as ONE batched matmul,
     and the averaged energy difference drives a first-order integrator.
-    Acquisition is slower by the sub-block factor but each step is MXU work.
+    Acquisition is slower by the sub-block factor but each step is matmul work.
 
     In cascades keep ``loop_bw`` small (default 0.01): a wide FLL bandwidth
     jitters the de-rotation frequency at sub-block rate, phase-random-walking

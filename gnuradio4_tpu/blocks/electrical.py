@@ -2,7 +2,7 @@
 PowerEstimators.hpp: PowerMetrics<T, nPhases>, PowerFactor, SystemUnbalance).
 
 Windowed power estimation is a reduction over decimation windows — a reshape +
-mean on the VPU, fully fused.
+mean elementwise, fully fused.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Adaptive channel equalizers (beyond the reference's blocklib — classic
 GNU Radio capability: cma_equalizer_cc / lms_dd_equalizer_cc).
 
-TPU-native design: **block-LMS / block-CMA** — taps update once per
+Design: **block-LMS / block-CMA** — taps update once per
 ``update_len`` symbols using the averaged gradient over the sub-block, so the
-inner work is a frames×taps matmul (MXU) instead of a per-symbol scalar loop.
+inner work is a frames×taps matmul (matrix units) instead of a per-symbol scalar loop.
 Block-gradient adaptation is the standard fast-LMS formulation; convergence is
 the same fixed point with slightly slower time constants.
 """

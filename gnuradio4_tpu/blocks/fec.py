@@ -1,7 +1,7 @@
 """Convolutional FEC: encoder + streaming Viterbi decoder.
 
 Beyond the reference's blocklib (GR4 has no FEC) — classic gr-fec capability,
-redesigned TPU-first: the Viterbi add-compare-select recursion runs as a
+redesigned device-first: the Viterbi add-compare-select recursion runs as a
 ``lax.scan`` over received symbol pairs with ALL trellis states updated as one
 vectorized [n_states] step (gather over precomputed predecessor tables), and
 the traceback is a second (backward) scan. Default code: the ubiquitous

@@ -2,7 +2,7 @@
 BasicFileSink, WavBlocks.hpp WavSource/WavSink).
 
 Sources stream through the native ring on an IO thread (core/feeder.py) so disk
-latency never stalls device dispatch — the TPU-native analog of the reference's
+latency never stalls device dispatch — the device-native analog of the reference's
 IO-bound thread pool feeding ring buffers.
 """
 

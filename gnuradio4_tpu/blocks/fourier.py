@@ -45,19 +45,18 @@ class FFT(Block):
     engine = Setting(default="auto", kind="static",
                      choices=("auto", "xla", "matmul", "matmul_exact",
                               "matmul_bf16"),
-                     description="auto/xla → FFT HLO; matmul → four-step MXU "
-                                 "FFT (bf16x3: ~95 dB on-chip, exact on CPU); "
-                                 "matmul_exact → f32-exact MXU four-step "
-                                 "(>120 dB, measured at parity with the HLO "
-                                 "on-chip); matmul_bf16 → one-pass MXU FFT "
-                                 "(~50 dB, monitoring-grade). 'auto' honors "
-                                 "GR4TPU_FFT_ENGINE for perf sweeps")
+                     description="auto/xla → FFT HLO; matmul → four-step "
+                                 "matmul FFT at the 'high' precision rung; "
+                                 "matmul_exact → four-step at HIGHEST "
+                                 "(f32-exact); matmul_bf16 → bf16-operand "
+                                 "four-step (~50 dB, monitoring-grade). "
+                                 "'auto' honors GR4_FFT_ENGINE")
 
     def _engine(self) -> str:
         import os
         eng = str(self.settings.get("engine"))
         if eng == "auto":
-            eng = os.environ.get("GR4TPU_FFT_ENGINE", "xla").lower()
+            eng = os.environ.get("GR4_FFT_ENGINE", "xla").lower()
         return eng
 
     def _fft(self, frames: jnp.ndarray, n: int) -> jnp.ndarray:
@@ -191,7 +190,7 @@ class FFT(Block):
 @register_block("IFFT")
 class IFFT(Block):
     """Inverse chunked FFT (complex in → complex out). ``engine=matmul*``
-    runs the inverse as the conjugate of the four-step MXU transform
+    runs the inverse as the conjugate of the four-step matmul transform
     (IFFT(x) = conj(FFT(conj(x)))/N)."""
 
     IN = (Port("in", dtype="complex64"),)
@@ -207,22 +206,12 @@ class IFFT(Block):
 
     def apply(self, state, ins, ctx):
         import os
-        import jax
         x = ins["in"]
         n = int(self.settings.get("fft_size"))
         xr = x.reshape(*x.shape[:-1], -1, n)
         eng = str(self.settings.get("engine"))
         if eng == "auto":
-            # MEASURED (SWEEP_r05 w3/w4, within-window A/Bs): the conjugate
-            # four-step MXU inverse beats the IFFT HLO 2.2-2.3x — and the
-            # HIGHEST rung (f32-exact, 1.103 ms/8Mi vs hlo 2.444) still
-            # does, so 'auto' takes the EXACT matmul engine on TPU: no
-            # accuracy trade (the on-chip probe measured the 'high' rung at
-            # only ~95 dB — scripts/tpu_precision_probe.py). The forward
-            # FFT keeps the HLO (parity with matmul-highest there).
-            default = "matmul_exact" if jax.default_backend() == "tpu" \
-                else "xla"
-            eng = os.environ.get("GR4TPU_IFFT_ENGINE", default).lower()
+            eng = os.environ.get("GR4_IFFT_ENGINE", "xla").lower()
         # same 64..65536 bounds as FFT._fft (dense host factor matrices)
         if eng in ("matmul", "matmul_exact", "matmul_bf16") \
                 and 64 <= n <= 65536 and (n & (n - 1)) == 0:

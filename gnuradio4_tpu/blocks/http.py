@@ -64,7 +64,7 @@ class HttpSource(SourceBlock):
     def _fetch_once(self) -> np.ndarray | None:
         dt = np.dtype(canonical_dtype(self.settings.get("dtype")))
         url = str(self.settings.get("url"))
-        req = urllib.request.Request(url, headers={"User-Agent": "gr4-tpu"})
+        req = urllib.request.Request(url, headers={"User-Agent": "gnuradio4"})
         with urllib.request.urlopen(
                 req, timeout=float(self.settings.get("timeout_s"))) as resp:
             body = resp.read()

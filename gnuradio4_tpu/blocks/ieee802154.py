@@ -15,7 +15,7 @@ frame length, PSDU ending in the 2-byte FCS — CRC-16/KERMIT (ITU-T
 x^16+x^12+x^5+1, init 0, LSB-first, appended little-endian; section 7.2.1.9).
 Nibbles transmit low-first within each byte.
 
-TPU-native split (the receiver-family pattern, blocks/ais.py /
+Device/host split (the receiver-family pattern, blocks/ais.py /
 blocks/ble.py): synthesis is a vectorized half-sine chip timeline; the
 :class:`Ieee802154Decoder` sink consumes complex baseband, finds the SHR
 by complex correlation (which also yields the carrier-phase derotation),

@@ -1,7 +1,7 @@
 """LDPC stream blocks over :mod:`gnuradio4_tpu.ops.ldpc`.
 
 Both halves run ON DEVICE inside the fused flowgraph program: encoding is a
-0/1 matmul against the systematic generator (MXU), decoding is the
+0/1 matmul against the systematic generator (matrix units), decoding is the
 normalized min-sum belief propagation vmapped over the frames in each
 scheduler step (segment reductions + ``lax.scan`` over iterations). The
 code is constructed deterministically from (n, m, wc, seed) so a matched

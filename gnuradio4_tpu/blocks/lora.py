@@ -4,7 +4,7 @@ The physical layer that makes LoRa famous: a symbol is an up-chirp sweeping
 the full bandwidth once per 2^SF samples, cyclically shifted by the symbol
 value, so demodulation is `multiply by the conjugate base chirp → FFT →
 argmax` — the constant-tone bin IS the symbol. That structure is ideal for
-the TPU: the hot path is one batched FFT over `[n_symbols, 2^SF]` frames
+the accelerator: the hot path is one batched FFT over `[n_symbols, 2^SF]` frames
 (:class:`CssDemod` is a device block, jitted into the flowgraph program);
 the bit layer (Gray mapping, diagonal interleaver, Hamming FEC, whitening,
 length header) is a host sink, per the family pattern (blocks/rtty.py).
@@ -232,7 +232,7 @@ class CssDemod(Block):
     """Device-side CSS demodulator: reshape the IQ stream into `[n, 2^SF]`
     frames, multiply by the conjugate base up-chirp, batched FFT, argmax →
     one symbol index per frame (float32 stream, ratio 1/2^SF). The whole
-    thing jits into the flowgraph program — the TPU-native half of the LoRa
+    thing jits into the flowgraph program — the device-native half of the LoRa
     family; symbol alignment is the host decoder's job (it searches all
     2^SF phases of the preamble)."""
 

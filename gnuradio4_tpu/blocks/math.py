@@ -1,8 +1,8 @@
 """Arithmetic blocks (≈ reference blocks/math/Math.hpp, Rotator.hpp).
 
 Add/Subtract/Multiply/Divide over N inputs and the *Const variants, plus the complex
-Rotator (NCO frequency shifter). All are pure elementwise VPU work that XLA fuses
-into neighbors — a chain of these compiles to a single fused kernel, the TPU analog
+Rotator (NCO frequency shifter). All are pure elementwise vector work that XLA fuses
+into neighbors — a chain of these compiles to a single fused kernel, the accelerator analog
 of the reference's compile-time BlockMerging (BlockMerging.hpp).
 """
 

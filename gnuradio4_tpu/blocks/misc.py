@@ -411,7 +411,7 @@ class FrequencyEstimator(Block):
 @register_block("SavitzkyGolayFilter")
 class SavitzkyGolayFilter(Block):
     """Polynomial smoothing / differentiation (≈ SavitzkyGolayFilter). An FIR with
-    S-G designed taps → MXU framing path; centered output (group-delay removed)
+    S-G designed taps → matmul framing path; centered output (group-delay removed)
     costs (window−1)/2 samples of latency carried in state."""
 
     IN = (Port("in", dtype="float32"),)
@@ -453,10 +453,7 @@ class SvdDenoiser(Block):
                      choices=("auto", "xla", "jacobi"),
                      description="SVD kernel: XLA QR-iteration or the "
                                  "one-sided Jacobi sweep (static control "
-                                 "flow, ≈ reference SVD.hpp); auto = jacobi "
-                                 "on TPU (QR iteration is data-dependent "
-                                 "control flow XLA lowers poorly there), "
-                                 "xla elsewhere")
+                                 "flow, ≈ reference SVD.hpp); auto = xla")
 
     @property
     def alignment(self):
@@ -469,7 +466,7 @@ class SvdDenoiser(Block):
         xw = x.reshape(-1, n)
         eng = str(self.settings.get("engine"))
         if eng == "auto":
-            eng = "jacobi" if jax.default_backend() == "tpu" else "xla"
+            eng = "xla"
         den = jax.vmap(lambda c: svd_denoise(
             c, window=int(self.settings.get("window")),
             rank=int(self.settings.get("rank")),
@@ -557,7 +554,7 @@ class StreamFilter(Block):
 
     The reference emits a *variable-rate* stream containing only the samples
     inside start→stop trigger windows; static shapes forbid that, so the
-    TPU-native form gates out-of-window samples to zero (dense stream, same
+    device-native form gates out-of-window samples to zero (dense stream, same
     rate) — pair with StreamToDataSet when true extraction is needed. Window
     state carries across steps.
     """

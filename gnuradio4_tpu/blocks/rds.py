@@ -271,7 +271,7 @@ class RdsSource(Block):
     FEED = True
     pi = Setting(default=0x52A1, kind="static")
     pty = Setting(default=0, kind="static")
-    ps = Setting(default="GR4-TPU ", kind="static")
+    ps = Setting(default="GR4-GPU ", kind="static")
     radiotext = Setting(default="", kind="static")
     carrier_hz = Setting(default=57000.0, kind="static", unit="Hz")
     sample_rate = Setting(default=228000.0, kind="static", unit="Hz")

@@ -88,7 +88,7 @@ def _alias_map(name: str, target: str, keymap: dict[str, str],
 # time-domain filters — time_domain_filter.hpp:24 fir_filter / :57-60
 # iir_filter (all four IIRForm registrations collapse onto the scan engine:
 # DF-I/II/transposed are algebraically identical transfer functions; form
-# choice is a CPU micro-arch concern with no TPU analog)
+# choice is a CPU micro-arch concern with no device analog)
 _alias("fir_filter", "FirFilter")
 _alias("iir_filter", "IirFilter")
 

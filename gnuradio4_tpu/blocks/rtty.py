@@ -5,7 +5,7 @@ same shift at RF), ITA2 5-bit code with LTRS/FIGS shift states, asynchronous
 character framing (1 start bit = space, 5 data bits LSB-first, ≥1.5 stop bits
 = mark; idle line = mark).
 
-TPU-native split (the family pattern, see blocks/sstv.py / dcf77.py):
+Device/host split (the family pattern, see blocks/sstv.py / dcf77.py):
 synthesis is a vectorized per-sample frequency timeline integrated into
 phase-continuous FM; the receiver consumes an audio (or discriminator)
 stream in the :class:`RttyDecoder` sink — analytic-signal discriminator,

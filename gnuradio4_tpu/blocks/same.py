@@ -7,7 +7,7 @@ sent LSB-first. A transmission is three identical header bursts
 separated by one second of silence; end-of-message is three bursts of
 preamble + ``NNNN``.
 
-TPU-native split (the family pattern, blocks/rtty.py): synthesis is a
+Device/host split (the family pattern, blocks/rtty.py): synthesis is a
 per-sample frequency timeline integrated into phase-continuous FM; the
 :class:`SameDecoder` sink splits bursts on envelope silence, recovers the
 bit clock from the preamble's alternation edges, majority-votes the three

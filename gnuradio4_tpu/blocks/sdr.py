@@ -29,7 +29,7 @@ class QuadratureDemod(Block):
     OUT = (Port("out", dtype="float32"),)
     SAMPLE_ACCURATE = frozenset({"gain"})
     # single-reader elementwise consumer: its producer's edge barrier may be
-    # skipped under GR4TPU_FUSE_EPILOGUE=1 (compiler epilogue fusion) — the
+    # skipped under GR4_FUSE_EPILOGUE=1 (compiler epilogue fusion) — the
     # intermediate complex stream then never round-trips HBM
     EPILOGUE_FUSABLE = True
     gain = Setting(default=1.0, description="rad→output scaling (fs/(2π·Δf))")
@@ -348,7 +348,7 @@ class WbfmReceiver(Graph):
 class SsbDemod(Block):
     """SSB (USB/LSB) demodulator, filter method: translate the wanted sideband
     to baseband, low-pass to the audio bandwidth, take 2·Re — all one fused
-    device program (NCO + MXU FIR). ≈ classic GNU Radio SSB receiver flowgraphs
+    device program (NCO + matmul FIR). ≈ classic GNU Radio SSB receiver flowgraphs
     (no single reference block; beyond the GR4 reference's blocklib).
 
     Input: complex IQ centered on the (suppressed) carrier. Output: real audio
@@ -410,10 +410,10 @@ class SsbDemod(Block):
 class FmStereoDecoder(Block):
     """FM stereo MPX decoder: composite (FM-demodulated baseband) → L and R.
 
-    Feed-forward TPU-native pilot recovery (no feedback loop): the 19 kHz
+    Feed-forward device-native pilot recovery (no feedback loop): the 19 kHz
     pilot is band-passed and SQUARED to regenerate the 38 kHz subcarrier
     (classic doubling trick), which demodulates the DSB-SC L−R band; L+R is
-    the 0–15 kHz baseband. Everything is windowed-sinc FIRs (MXU) +
+    the 0–15 kHz baseband. Everything is windowed-sinc FIRs (matrix units) +
     elementwise math in one fused program. De-emphasize each channel
     downstream at audio rate. Outputs at the input (quadrature) rate.
     """

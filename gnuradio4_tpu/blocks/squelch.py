@@ -8,7 +8,7 @@ set (WbfmReceiver, AmDemod, SsbDemod) with the classic mute gates:
   a one-pole envelope of |x|² gates the stream sample-accurately.  The
   envelope recurrence runs as an O(log T) ``associative_scan``
   (ops/iir.one_pole_apply) rather than a sequential loop — the
-  TPU-native form of the reference-style per-sample IIR.
+  device-native form of the reference-style per-sample IIR.
 - :class:`CtcssSquelch` (≈ gr ctcss_squelch_ff): per-chunk Goertzel
   power at the sub-audible tone frequency, compared against the total
   chunk power, gates whole chunks (vmapped Goertzel over the chunk

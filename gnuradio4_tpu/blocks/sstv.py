@@ -7,7 +7,7 @@ transmission opens with the calibration header + 7-bit VIS mode code (1100 Hz
 = '1', 1300 Hz = '0', even parity). Martin M1 geometry (the classic 320-wide
 mode): 4.862 ms sync, 0.572 ms porches, 146.432 ms per colour scan.
 
-TPU-native split (the APT pattern, blocks/apt.py): waveform synthesis is
+Device/host split (the APT pattern, blocks/apt.py): waveform synthesis is
 vectorized math (phase-continuous FM over a per-sample frequency timeline);
 the receiver consumes an FM-discriminator/instantaneous-frequency stream and
 does O(lines) host work — sync-run detection, line slicing, per-pixel bin

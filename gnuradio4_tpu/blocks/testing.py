@@ -112,9 +112,10 @@ class CountingSource(SourceBlock):
 class VectorSource(SourceBlock):
     """Plays back a host array once (or repeated); ≈ VectorSource qa helper.
 
-    ``device_resident=True`` uploads the array ONCE (it enters the compiled
-    program as a jit constant) and each step slices it on-device — no
-    per-step host→device feed. This is the TPU analog of the reference's
+    ``device_resident=True`` uploads the array ONCE, into the block's carried
+    state at ``init_states`` (not as a jit constant, which would embed the
+    whole array in the program), and each step slices it on-device — no
+    per-step host→device feed. This is the accelerator analog of the reference's
     mmap'd file playback (BasicFileIo.hpp): the data plane stays on the
     device, the host only paces steps. EOS/partial-final-step semantics,
     tags, repeat, and sp-sharding (replicated-island default) are identical
@@ -124,9 +125,10 @@ class VectorSource(SourceBlock):
     FEED = True
     repeat = Setting(default=False, kind="static")
     device_resident = Setting(default=False, kind="static",
-                              description="bake the array into the compiled "
-                                          "program; per-step on-device slice "
-                                          "instead of host feeds")
+                              description="upload the array once into the "
+                                          "block's carried state; per-step "
+                                          "on-device slice instead of host "
+                                          "feeds")
 
     def __init__(self, data: Any = (), name: str | None = None, tags: list[Tag] = (),
                  **settings: Any):

@@ -3,7 +3,7 @@
 The reference templates math/filter/converter blocks on
 ``gr::UncertainValue<T>`` (meta/UncertainValue.hpp; registrations at
 Math.hpp:25-28,68-71 and time_domain_filter.hpp:213), so a value±sigma pair
-*is* the sample flowing through the graph. The TPU-native form: an uncertain
+*is* the sample flowing through the graph. The device-native form: an uncertain
 stream is a **2-plane float32 stream** — ``channels == 2``, plane 0 the value,
 plane 1 the (non-negative) 1-sigma uncertainty. It is a plain array, so every
 piece of runtime machinery (rings, sp/chan sharding, checkpoints, YAML, file

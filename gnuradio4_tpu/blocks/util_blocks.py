@@ -52,7 +52,7 @@ class Throttle(Block):
 
 @register_block("MovingAverage")
 class MovingAverage(Block):
-    """Length-N moving average as a uniform-tap FIR on the MXU (matmul
+    """Length-N moving average as a uniform-tap FIR on the matrix units (matmul
     framing, bounded error ~N·ε); carried state = last N−1 inputs. Very long
     windows (> 4096) fall back to prefix sums — note that cumsum error grows
     with block_len × signal mean (catastrophic cancellation of large prefix

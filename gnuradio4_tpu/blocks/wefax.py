@@ -8,7 +8,7 @@ IOC 576), a **phasing** interval of white lines each carrying a 5%-width
 black sync pulse (the receiver derives the line phase from these), the
 image, and a 450 Hz **stop tone**.
 
-TPU-native split (the family pattern, blocks/sstv.py): synthesis is a
+Device/host split (the family pattern, blocks/sstv.py): synthesis is a
 vectorized per-sample frequency timeline integrated into phase-continuous
 FM; the :class:`WefaxDecoder` sink consumes the audio (or discriminator)
 stream — analytic-signal discriminator, 300 Hz start-tone detector, phasing-

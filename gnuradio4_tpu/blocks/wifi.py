@@ -9,7 +9,7 @@ convolutionally encoded (K=7, g0=0o133/g1=0o171, punctured to 2/3 or
 3/4), block-interleaved per symbol and Gray-mapped to BPSK/QPSK/16/64-QAM
 (IEEE 802.11-2012 clause 18).
 
-TPU-native split (the receiver-family pattern, blocks/ieee802154.py):
+Device/host split (the receiver-family pattern, blocks/ieee802154.py):
 synthesis is a vectorized frequency-domain assembly + IFFT timeline; the
 :class:`WifiDecoder` sink consumes complex baseband at 20 Msps, finds the
 LTF by cross-correlation, estimates CFO from the LTF repetition and the

@@ -2,12 +2,14 @@
 ComputeDomain.hpp:16-60: {kind, access, backend, deviceIndex, tag}, parse
 "kind:backend:idx"; consumed per-Edge/per-Port).
 
-In the TPU build the natural domains are:
+The natural domains are:
 
-- ``tpu`` (default): the block's apply is traced into the fused device program;
+- ``gpu`` (default): the block's apply is traced into the fused device program;
 - ``host``: the block runs on the host (sinks/sources/HostBlock — anything with
   FEED/HOST_TAP/consume);
-- a mesh axis placement for sharded execution (``tpu:mesh:<axis>``).
+- a mesh axis placement for sharded execution (``gpu:mesh:<axis>``).
+
+``fpga`` parses, for parity with the reference, but no block runs there.
 
 The descriptor is carried on edges (Graph.connect(..., domain=...)) and exposed
 through introspection; the compiler currently derives actual placement from
@@ -25,7 +27,6 @@ from .errors import GrError
 
 class DomainKind(enum.Enum):
     HOST = "host"
-    TPU = "tpu"
     GPU = "gpu"
     FPGA = "fpga"
 
@@ -38,7 +39,7 @@ class Access(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class ComputeDomain:
-    kind: DomainKind = DomainKind.TPU
+    kind: DomainKind = DomainKind.GPU
     backend: str = "xla"
     device_index: int = 0
     access: Access = Access.SHARED
@@ -54,7 +55,7 @@ class ComputeDomain:
             raise GrError(f"unknown compute-domain kind {parts[0]!r}; "
                           f"known: {[k.value for k in DomainKind]}") from e
         backend = parts[1] if len(parts) > 1 and parts[1] else \
-            ("xla" if kind is DomainKind.TPU else "")
+            ("xla" if kind is DomainKind.GPU else "")
         idx = int(parts[2]) if len(parts) > 2 and parts[2] else 0
         return cls(kind=kind, backend=backend, device_index=idx)
 

@@ -1,6 +1,6 @@
 """Structured errors and logging.
 
-TPU-native analog of the reference's ``gr::Error`` / ``gr::exception`` record with
+Device-native analog of the reference's ``gr::Error`` / ``gr::exception`` record with
 source-location and timestamp (reference: core/include/gnuradio-4.0/Logger.hpp:26-59).
 We lean on Python's ``logging`` for transport but keep a structured ``Error`` record so
 scheduler/message paths can carry errors as data (the reference uses ``std::expected``).

@@ -5,7 +5,7 @@ type-erased blocks + lazy ``Edge`` records; ``connectPendingEdges`` binds ports 
 shared ring buffers at scheduler start (Graph.hpp:744-812); ``graph::flatten``
 (Graph.hpp:916) inlines nested graphs; ``computeAdjacencyList`` (Graph.hpp:932).
 
-TPU-native design: the graph is a *description* that the compiler traces into one
+Design: the graph is a *description* that the compiler traces into one
 jitted XLA program per scheduler step. Edges carry no buffers — they are SSA values in
 the traced program (XLA fuses across them); buffer-ish behavior only exists at the
 host↔device boundary (scheduler.py). The reference's per-work() chunk negotiation

@@ -2,7 +2,7 @@
 
 Same state set and transition table as the reference scheduler/block lifecycle
 (reference: core/include/gnuradio-4.0/LifeCycle.hpp:74 ``State`` enum, :108
-``isValidTransition``), re-expressed as a small host-side Python FSM. On TPU the FSM
+``isValidTransition``), re-expressed as a small host-side Python FSM. On an accelerator the FSM
 governs the *host streaming runtime* (graph compile, step pump, pause/resume); the
 device program itself is stateless between dispatches.
 """

@@ -1,7 +1,7 @@
 """Explicit block fusion (≈ reference core BlockMerging.hpp: mergeByIndex
 compile-time fusion).
 
-On TPU, XLA already fuses chained elementwise blocks inside the single jitted
+On an accelerator, XLA already fuses chained elementwise blocks inside the single jitted
 step — fusion is the *default*, not an optimization the user must opt into. This
 module provides the explicit ``merge`` API for parity and for cases where one
 wants a single reusable Block object (e.g. to register a fused composite): the

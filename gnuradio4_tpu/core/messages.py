@@ -5,7 +5,7 @@ Reference: Majordomo-shaped ``gr::Message`` records flowing over message ports
 standard per-block property endpoints (Block.hpp:520-576); the scheduler pumps
 messages between stream work (Scheduler.hpp:471).
 
-TPU-native design: messages are host-side dataclasses on a thread-safe queue the
+Design: messages are host-side dataclasses on a thread-safe queue the
 scheduler drains between steps (the jitted device program never sees them — settings
 changes land as new param arrays or a re-jit). The same endpoints exist so external
 code / UIs can Get/Set/Subscribe exactly like against the reference.

@@ -4,7 +4,7 @@ Reference: string→factory ``GeneralRegistry`` (core/include/gnuradio-4.0/
 BlockRegistry.hpp:44) populated by ``GR_REGISTER_BLOCK`` macros expanded by an offline
 codegen tool; ``PluginLoader`` dlopens ``.so`` plugins (PluginLoader.hpp).
 
-TPU-native design: registration is a decorator at import time (Python has real
+Design: registration is a decorator at import time (Python has real
 reflection, no codegen needed); "plugins" are importable modules/entry-point paths
 loaded by :class:`PluginLoader`. Type-parameterized reference blocks (``Convert<T,U>``)
 become a single block whose dtype is a setting/port property.

@@ -8,7 +8,7 @@ loop (Settings.hpp:371 ``stageParameters``/``applyStagedParameters``); time/name
 tag keys matching setting names auto-update settings (Settings.hpp:329); applied changes
 can auto-forward downstream as tags (ApplyStagedParametersResult.forwardParameters).
 
-TPU-native design: settings split into two kinds —
+Design: settings split into two kinds —
 
 - ``dynamic``: numeric leaves traced as *runtime arguments* of the jitted step, so a
   change costs zero recompiles (they live in the step's params pytree);

@@ -1,11 +1,11 @@
 """Time-block stream model.
 
 The reference moves *samples* one-at-a-time (or small spans) through lock-free ring
-buffers (reference: core/include/gnuradio-4.0/CircularBuffer.hpp). The TPU-native
+buffers (reference: core/include/gnuradio-4.0/CircularBuffer.hpp). The device-native
 inversion: a stream is a sequence of fixed-shape **time blocks** — arrays of shape
 ``[channels, block_len]`` (or ``[block_len]`` for single-channel) — that flow through a
 jitted program once per scheduler step. All shapes are static so XLA can tile onto the
-MXU/VPU; rate changes are resolved at *compile* time by the graph's rate algebra
+matrix and vector units; rate changes are resolved at *compile* time by the graph's rate algebra
 (compiler.py), the analog of the reference's per-work() ``computeResampling``
 (core/include/gnuradio-4.0/Block.hpp:1611).
 
@@ -22,8 +22,8 @@ from typing import Any
 import jax.numpy as jnp
 import numpy as np
 
-# Canonical sample dtypes. TPU compute favors f32/bf16; complex is carried natively by
-# XLA as c64 (two f32 lanes) which maps fine onto the VPU; MXU paths split re/im.
+# Canonical sample dtypes. Device compute favors f32/bf16; complex is carried natively by
+# XLA as c64 (two f32 lanes) which maps fine onto the vector units; matmul paths split re/im.
 DTYPES = {
     "float32": jnp.float32,
     "float64": jnp.float64,

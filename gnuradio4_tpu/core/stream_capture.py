@@ -10,7 +10,7 @@ both of its instantiations:
   *overlapping* concurrent windows with FIFO start/stop pairing
   (StreamToDataSet.hpp:262 processBulkDataSet).
 
-TPU-native placement: sample data rides the fused device program untouched;
+Placement: sample data rides the fused device program untouched;
 windowing is O(tags) host control-plane work on the sink side of the graph —
 the same split the rest of the tag machinery uses (core/tags.py). Variable-rate
 extraction is impossible under static shapes, so the reference's stream-out

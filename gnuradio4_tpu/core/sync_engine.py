@@ -7,7 +7,7 @@ dropped (accounted via ``n_dropped_samples`` tags), synchronized spans stream
 through, and when streams drift apart the per-port history is bounded by
 ``max_history_size`` (back-pressure drops) until the next common sync point.
 
-TPU-native placement: alignment decisions are O(tags) host control-plane work
+Placement: alignment decisions are O(tags) host control-plane work
 over buffered windows, exactly like the reference's processBulk over its
 input spans (SyncBlock.hpp:167-230) — the device-side skew-bounded form lives
 in ``blocks.misc.SyncBlock``. Feed each port incrementally (scheduler chunks)

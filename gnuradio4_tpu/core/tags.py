@@ -6,7 +6,7 @@ core/include/gnuradio-4.0/Tag.hpp:98 ``BasicTag``; TagChunkBuffer.hpp). Propagat
 policies decide how input tags map to output streams
 (reference: core/include/gnuradio-4.0/annotated.hpp:79).
 
-TPU-native design: the jitted device program moves only dense sample blocks; tags ride
+Design: the jitted device program moves only dense sample blocks; tags ride
 a **host-side sideband** that advances in lock-step with each scheduler step. This is
 semantically faithful: the reference also only applies tag-driven settings at chunk
 boundaries (Block.hpp:1986 chunk break at next tag), and per-step host tag work is

@@ -26,7 +26,6 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
-import yaml
 
 from .block import Block
 from .errors import GrError
@@ -121,6 +120,7 @@ def save_grc(graph: Graph, *, sample_rate: float | None = None,
     if block_len is not None:
         doc["block_len"] = int(block_len)
     doc.update(_graph_body(graph))
+    import yaml     # optional dependency: only YAML flowgraph I/O needs it
     return yaml.safe_dump(doc, sort_keys=False, default_flow_style=None)
 
 

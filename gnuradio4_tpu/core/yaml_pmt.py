@@ -21,8 +21,9 @@ from __future__ import annotations
 import re
 from typing import Any
 
+import functools
+
 import numpy as np
-import yaml
 
 from .errors import GrError
 
@@ -91,12 +92,9 @@ def _parse_bool(s: str, node) -> bool:
     raise GrError(f"Error in {_mark(node)}: Invalid value for bool-type")
 
 
-class _PmtLoader(yaml.SafeLoader):
-    pass
-
-
 def _scalar_for(tag: str):
     def build(loader, node, _tag=tag):
+        import yaml
         if isinstance(node, yaml.SequenceNode):
             # a numeric element tag on an item of an already-typed list is
             # the reference's "Cannot have type tag for both list and list
@@ -125,6 +123,7 @@ def _scalar_for(tag: str):
 
 
 def _scalar_value(loader, node, tag: str) -> Any:
+    import yaml
     if isinstance(node, yaml.SequenceNode):
         return [_scalar_value(loader, c, tag) for c in node.value]
     if isinstance(node, yaml.MappingNode):
@@ -156,13 +155,22 @@ def _scalar_value(loader, node, tag: str) -> Any:
 _ALL_TAGS = (set(_INT_TAGS) | set(_FLOAT_TAGS) | set(_COMPLEX_TAGS)
              | {"bool", "str", "null"})
 
-for _t in _ALL_TAGS:
-    _PmtLoader.add_constructor(f"tag:yaml.org,2002:{_t}", _scalar_for(_t))
+@functools.lru_cache(maxsize=1)
+def _pmt_loader():
+    """The typed SafeLoader, built at first use: PyYAML is an optional
+    dependency that only YAML flowgraph and PMT I/O needs."""
+    import yaml
 
-# untagged 0o77 / 0b1010 integers (the reference accepts them untagged as
-# int64; PyYAML's 1.1 resolver misses the 0o spelling)
-_PmtLoader.add_implicit_resolver(
-    "tag:yaml.org,2002:int", re.compile(r"^[-+]?0o[0-7]+$"), list("-+0"))
+    class _PmtLoader(yaml.SafeLoader):
+        pass
+
+    for t in _ALL_TAGS:
+        _PmtLoader.add_constructor(f"tag:yaml.org,2002:{t}", _scalar_for(t))
+    # untagged 0o77 / 0b1010 integers (the reference accepts them untagged as
+    # int64; PyYAML's 1.1 resolver misses the 0o spelling)
+    _PmtLoader.add_implicit_resolver(
+        "tag:yaml.org,2002:int", re.compile(r"^[-+]?0o[0-7]+$"), list("-+0"))
+    return _PmtLoader
 
 
 def _post(v: Any) -> Any:
@@ -179,8 +187,9 @@ def _post(v: Any) -> Any:
 
 def load(text: str) -> dict[str, Any]:
     """Parse reference-dialect YAML into a property map."""
+    import yaml
     try:
-        data = yaml.load(text, Loader=_PmtLoader)   # noqa: S506 — SafeLoader
+        data = yaml.load(text, Loader=_pmt_loader())   # noqa: S506 — SafeLoader
     except yaml.YAMLError as e:
         raise GrError(f"YAML parse error: {e}")
     return _post(data) if isinstance(data, dict) else (_post(data) or {})

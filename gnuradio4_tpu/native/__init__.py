@@ -1,7 +1,8 @@
 """Native (C++) runtime components.
 
 ``ringbuf.cpp`` — the double-mmapped lock-free ring (host data plane). Built on
-demand into ``libgr4ring.so`` next to this file; :mod:`.ring` wraps it via ctypes
+demand into ``libgr4ring.so`` next to this file (:mod:`.build`; no binary is
+committed); :mod:`.ring` wraps it via ctypes
 with a pure-Python fallback, so the framework works before/without the toolchain.
 """
 

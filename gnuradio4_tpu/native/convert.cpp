@@ -5,7 +5,7 @@
 // multiple temporaries; these kernels convert in one SIMD pass (g++
 // auto-vectorizes the loops) writing straight into the feed ring / pinned
 // buffer. ≈ the role of the reference's vir-simd converter blocks
-// (blocks/basic ConverterBlocks.hpp) on the host side of the TPU build.
+// (blocks/basic ConverterBlocks.hpp) on the host side of this build.
 //
 // Build: g++ -O3 -march=native -shared -fPIC -std=c++20 convert.cpp -o libgr4convert.so
 

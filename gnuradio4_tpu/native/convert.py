@@ -3,11 +3,12 @@
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
+
+from .build import build_library
 
 _HERE = Path(__file__).resolve().parent
 _SO = _HERE / "libgr4convert.so"
@@ -16,26 +17,17 @@ _lock = threading.Lock()
 
 
 def build_native(force: bool = False) -> bool:
+    """Compile convert.cpp → libgr4convert.so (rebuilt when the source is
+    newer). Returns success."""
     with _lock:
-        src = _HERE / "convert.cpp"
-        if _SO.exists() and not force and _SO.stat().st_mtime >= src.stat().st_mtime:
-            return True
-        for flags in (["-O3", "-march=native"], ["-O3"]):
-            try:
-                subprocess.run(["g++", *flags, "-shared", "-fPIC", "-std=c++20",
-                                str(src), "-o", str(_SO)],
-                               check=True, capture_output=True, timeout=120)
-                return True
-            except Exception:
-                continue
-        return False
+        return build_library(_HERE / "convert.cpp", _SO, force)
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not _SO.exists() and not build_native():
+    if not build_native():  # mtime-checked: rebuilds BEFORE the first dlopen
         return None
     try:
         lib = ctypes.CDLL(str(_SO))

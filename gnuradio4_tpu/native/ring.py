@@ -8,12 +8,12 @@ DataSink consumers. ≈ reference CircularBuffer (SURVEY §2.1)."""
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
+
+from .build import build_library
 
 _HERE = Path(__file__).resolve().parent
 _SO = _HERE / "libgr4ring.so"
@@ -25,17 +25,7 @@ _build_lock = threading.Lock()
 def build_native(force: bool = False) -> bool:
     """Compile ringbuf.cpp → libgr4ring.so (idempotent). Returns success."""
     with _build_lock:
-        src = _HERE / "ringbuf.cpp"
-        if _SO.exists() and not force and _SO.stat().st_mtime >= src.stat().st_mtime:
-            return True
-        try:
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-std=c++20",
-                 str(src), "-o", str(_SO)],
-                check=True, capture_output=True, timeout=120)
-            return True
-        except Exception:
-            return False
+        return build_library(_HERE / "ringbuf.cpp", _SO, force)
 
 
 def _load():

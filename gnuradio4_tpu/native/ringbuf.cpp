@@ -1,6 +1,6 @@
 // Lock-free SPSC/SPMC ring buffer with wrap-free contiguous spans.
 //
-// TPU-native analog of the reference's disruptor-style CircularBuffer
+// device-native analog of the reference's disruptor-style CircularBuffer
 // (core/include/gnuradio-4.0/CircularBuffer.hpp:75 double_mapped_memory_resource,
 // :223 CircularBuffer, ClaimStrategy.hpp, Sequence.hpp): the same memfd_create +
 // double-mmap trick maps the buffer twice back-to-back so any reserve/read span is

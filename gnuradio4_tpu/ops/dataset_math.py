@@ -2,7 +2,7 @@
 
 Host-side transforms over :class:`~gnuradio4_tpu.core.dataset.DataSet`
 (captured windows live on the host once a StreamToDataSet/DataSink delivers
-them — the TPU data path ends at the capture boundary, as in the reference
+them — the accelerator data path ends at the capture boundary, as in the reference
 where DataSet math runs outside the streaming hot loop).
 
 Mirrors:

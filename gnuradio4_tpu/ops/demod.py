@@ -1,7 +1,7 @@
 """Demodulation kernels (≈ reference blocks/filter FrequencyEstimator.hpp
 IQDemodulator and the capabilities of a classic SDR receive chain).
 
-All elementwise VPU math — XLA fuses the whole demod into the neighboring FIR/
+All elementwise vector math — XLA fuses the whole demod into the neighboring FIR/
 resampler kernels.
 """
 

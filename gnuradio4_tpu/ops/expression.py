@@ -1,7 +1,7 @@
 """ExprTk-subset expression compiler → JAX (≈ reference blocks/math
 ExpressionBlocks.hpp:68, which embeds the ExprTk C++ JIT).
 
-The TPU inversion: instead of a bytecode interpreter per sample, the
+The device inversion: instead of a bytecode interpreter per sample, the
 expression is parsed once into an AST and *traced* into the XLA program —
 the XLA compiler is the JIT.  Supported ExprTk subset:
 

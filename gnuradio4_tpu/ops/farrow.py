@@ -4,7 +4,7 @@ resampling beyond the reference's rational L/M capability.
 For output index m, the source position is p = m·ratio + φ0; sample index
 i = ⌊p⌋, fractional μ = p − i. Output = cubic interpolation over x[i−1..i+2]
 (Lagrange basis). All positions are computed vectorized; the 4 basis gathers are
-contiguous shifted slices, so the kernel is gather-free and fuses on the VPU.
+contiguous shifted slices, so the kernel is gather-free and fuses elementwise.
 
 Static shapes: outputs-per-step is fixed by the rate algebra
 (out = round(in / ratio) with the fractional phase carried in state).

@@ -3,8 +3,8 @@
 Reference: in-house radix FFT + SIMD split-radix (algorithm/fourier/fft.hpp:91,
 SimdFFT.hpp) and the FFT block producing DataSet spectra (blocks/fourier/fft.hpp:33).
 
-TPU-native design: XLA's native FFT HLO (``jnp.fft``) — hand-rolling radix kernels
-would fight the compiler; XLA's TPU FFT is already fused/tiled. We provide windowed
+Design: XLA's native FFT HLO (``jnp.fft``, cuFFT on a GPU) — hand-rolling radix
+kernels would fight the compiler. We provide windowed
 chunked transforms over ``[..., n_chunks, fft_size]`` with static shapes, plus the
 spectrum post-processing (magnitude, dB, shift, phase) the reference FFT block emits.
 """
@@ -82,20 +82,16 @@ def spectrum_scale(fft_size: int, window: np.ndarray | None, *, power: bool,
 
 
 # ---------------------------------------------------------------------------
-# Matmul (MXU) FFT — a four-step Cooley-Tukey alternative to the FFT HLO.
-#
-# XLA's native TPU FFT runs on the VPU; for throughput-bound spectral
-# monitoring the MXU has ~an order of magnitude more FLOPs. N = N1·N2 splits
+# Matmul FFT — a four-step Cooley-Tukey alternative to the FFT HLO that runs
+# on the matrix units. N = N1·N2 splits
 # the transform into two dense [N1,N1]/[N2,N2] matmul stages plus an
 # elementwise twiddle:
 #
 #   X[k1 + N1·k2] = Σ_{n2} W_N^{n2·k1} W_{N2}^{n2·k2} (Σ_{n1} x[n1,n2] W_{N1}^{n1·k1})
 #
 # (x reshaped [n1, n2] row-major). Precision modes mirror ops/fir.py:
-# 'highest' = exact f32 (6 bf16 passes), 'high' = 3 passes (~f32),
-# 'bf16' = 1 pass (~45 dB per stage — monitoring-grade, opt-in).
-# The round-3 prototype measured four-step at HIGHEST slower than the HLO
-# (1.29 vs 0.77 ms per 2048×4096); the pass-count ladder is what changed.
+# 'highest' = exact f32, 'high' = the backend's HIGH dot precision,
+# 'bf16' = bf16 operands (~45 dB per stage — monitoring-grade, opt-in).
 # ---------------------------------------------------------------------------
 
 
@@ -119,18 +115,8 @@ def _cx_dot(ar, ai, w: np.ndarray, sub: str, mode: str):
     wr = np.ascontiguousarray(w.real.astype(np.float32))
     wi = np.ascontiguousarray(w.imag.astype(np.float32))
     if mode == "bf16":
-        if jax.default_backend() == "tpu":
-            dot = lambda a, m: jnp.einsum(sub, a.astype(jnp.bfloat16),
-                                          jnp.asarray(m, jnp.bfloat16),
-                                          preferred_element_type=jnp.float32)
-        else:
-            # CPU dot thunks reject bf16 operands: emulate the single MXU
-            # pass bit-exactly (bf16-rounded products, f32 accumulation)
-            dot = lambda a, m: jnp.einsum(
-                sub, a.astype(jnp.bfloat16).astype(jnp.float32),
-                jnp.asarray(m, jnp.bfloat16).astype(jnp.float32),
-                precision=jax.lax.Precision.DEFAULT,
-                preferred_element_type=jnp.float32)
+        from .fir import bf16_einsum
+        dot = lambda a, m: bf16_einsum(sub, a, m)
     else:
         prec = jax.lax.Precision.HIGHEST if mode == "highest" \
             else jax.lax.Precision.HIGH
@@ -143,7 +129,7 @@ def _cx_dot(ar, ai, w: np.ndarray, sub: str, mode: str):
 
 def matmul_fft(x: jnp.ndarray, fft_size: int, *, n1: int | None = None,
                mode: str = "high") -> jnp.ndarray:
-    """FFT over the trailing axis via two MXU matmul stages.
+    """FFT over the trailing axis via two matmul stages.
 
     x: [..., fft_size] (real or complex) → complex64 [..., fft_size].
     ``n1`` picks the split (default 64 for 4096-class sizes); ``mode`` is the

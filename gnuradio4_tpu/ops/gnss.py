@@ -4,7 +4,7 @@ Beyond-reference model family — and, unlike the host-side frame decoders,
 a DEVICE-side workload: acquisition is a 2-D search over Doppler × code
 phase, evaluated as a batch of FFT circular correlations (one [D, N]
 element-wise wipe + FFT per coherent block) — exactly the dense batched
-compute the TPU is for. Everything here is jnp and jit-able.
+compute the accelerator is for. Everything here is jnp and jit-able.
 
 C/A codes are the standard 1023-chip Gold codes (IS-GPS-200: G1 = 1+x³+x¹⁰,
 G2 = 1+x²+x³+x⁶+x⁸+x⁹+x¹⁰ with per-PRN G2 phase taps), validated against the
@@ -217,7 +217,7 @@ def track(iq: np.ndarray, prn: int, *, fs: float, code_phase: int,
 def track_channels(iq: np.ndarray, acquisitions: list[dict], *, fs: float
                    ) -> list[dict]:
     """Parallel tracking channels: one vmapped scan tracks every acquired
-    satellite simultaneously (the TPU-native form of a receiver's channel
+    satellite simultaneously (the device-native form of a receiver's channel
     bank — channels are a batch axis, not threads)."""
     if not acquisitions:
         return []

@@ -1,7 +1,7 @@
 """LDPC codes: GF(2) construction/encoding (host) + a device-side
 normalized min-sum belief-propagation decoder.
 
-The decoder is the TPU-native piece: messages live on the Tanner-graph
+The decoder is the device-side piece: messages live on the Tanner-graph
 edges as one flat array, check updates are the two-minimum trick over
 segment reductions, variable updates are segment sums, and the iteration
 loop is a ``lax.scan`` — so a whole batch of codewords decodes as one
@@ -9,7 +9,7 @@ fused device program (`vmap` over the batch).
 
 Construction: regular Gallager-style (column weight ``wc``) parity
 matrices with a deterministic RNG, then Gaussian elimination over GF(2)
-to a systematic generator — encoding is a plain 0/1 matmul (MXU-friendly).
+to a systematic generator — encoding is a plain 0/1 matmul.
 """
 
 from __future__ import annotations
@@ -105,12 +105,11 @@ class LdpcGraph:
 
     Two layouts are prepared host-side:
     - flat edge arrays (chk/var) for the segment-op formulation (CPU);
-    - a dense check-layout for the TPU path: ``V [m, wr_max]`` = variable
+    - a dense check-layout for accelerators: ``V [m, wr_max]`` = variable
       index per check slot (padded), ``mask [m, wr_max]``, and the one-hot
       scatter matrix ``S [m·wr_max, n]`` that turns every segment
-      reduction into an MXU matmul. TPU scatter/segment ops serialize
-      (measured 82 ms/step on the n=256 bench); the dense form is pure
-      matmul + per-row mins over a tiny wr axis.
+      reduction into a matmul. The dense form is pure matmul + per-row
+      mins over a tiny wr axis — no scatter or segment reductions.
     """
 
     def __init__(self, H: np.ndarray):
@@ -141,12 +140,12 @@ class LdpcGraph:
 @partial(jax.jit, static_argnums=(0, 2))
 def min_sum_decode_dense(graph: LdpcGraph, llr: jnp.ndarray,
                          n_iters: int = 25, alpha: float = 0.8125):
-    """Normalized min-sum BP in the dense check-layout (TPU path).
+    """Normalized min-sum BP in the dense check-layout (accelerator path).
 
     Messages live as [batch, m, wr]; every segment reduction is either a
-    per-row min/sum over the wr axis (wr ≈ 6, pure VPU) or a matmul with
-    the constant one-hot S (MXU). No scatter/segment HLOs anywhere —
-    those serialize on TPU (82 ms/step → ~2 ms on the n=256 bench).
+    per-row min/sum over the wr axis (wr ≈ 6, elementwise) or a matmul with
+    the constant one-hot S at HIGHEST precision (exact for one-hot weights).
+    No scatter/segment HLOs anywhere.
     Algebraically identical to :func:`min_sum_decode` (tie-breaking on
     exactly-equal minima may pick a different edge; with continuous LLRs
     that is measure-zero)."""
@@ -197,17 +196,34 @@ def min_sum_decode_dense(graph: LdpcGraph, llr: jnp.ndarray,
     return decode(llr)
 
 
+def ldpc_layout(backend: str | None = None) -> str:
+    """Decoder layout :func:`min_sum_decode` takes. The CPU keeps the flat
+    segment-op form: segment reductions are plain loops on the host, while
+    the dense form spends O(m·wr·n) one-hot MACs per reduction."""
+    return "segment" if (backend or jax.default_backend()) == "cpu" \
+        else "dense"
+
+
 @partial(jax.jit, static_argnums=(0, 2))
 def min_sum_decode(graph: LdpcGraph, llr: jnp.ndarray, n_iters: int = 25,
                    alpha: float = 0.8125):
     """Normalized min-sum BP. ``llr`` is [batch, n] (positive = bit 0).
     Returns (hard_bits [batch, n] uint8, syndrome_ok [batch] bool).
 
-    On TPU this dispatches to the dense check-layout path
-    (:func:`min_sum_decode_dense`) — the flat segment-op formulation below
-    keeps CPU exactness and serves as the cross-check reference."""
-    if jax.default_backend() == "tpu":
+    Accelerators dispatch to the dense check-layout path
+    (:func:`min_sum_decode_dense`), the CPU to the flat segment-op
+    formulation (:func:`min_sum_decode_segment`); see :func:`ldpc_layout`."""
+    if ldpc_layout() == "dense":
         return min_sum_decode_dense(graph, llr, n_iters, alpha=alpha)
+    return min_sum_decode_segment(graph, llr, n_iters, alpha=alpha)
+
+
+@partial(jax.jit, static_argnums=(0, 2))
+def min_sum_decode_segment(graph: LdpcGraph, llr: jnp.ndarray,
+                           n_iters: int = 25, alpha: float = 0.8125):
+    """Normalized min-sum BP over flat Tanner-graph edge arrays: check
+    updates are two-minimum segment reductions, variable updates segment
+    sums."""
     m, n, E = graph.m, graph.n, graph.n_edges
     chk, var = graph.chk, graph.var
 

@@ -1,9 +1,9 @@
 """Noise generation (≈ reference algorithm/rng Xoshiro256pp + GaussianNoise).
 
-TPU-native: JAX's counter-based threefry PRNG — splittable, reproducible, and
+Device-native: JAX's counter-based threefry PRNG — splittable, reproducible, and
 generated entirely on-device (no host RNG feed). The carried state is the PRNG key,
 split once per step; this is the idiomatic replacement for the reference's
-sequential xoshiro256++ stream (a sequential generator would serialize the VPU).
+sequential xoshiro256++ stream (a sequential generator would serialize the vector units).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ def complex_gaussian(key: jax.Array, shape: tuple[int, ...], *, std=1.0
 
 # -- host-side Xoshiro256++ (≈ reference algorithm/rng/Xoshiro256pp.hpp) -------
 #
-# The device-side noise above is threefry (jax.random) — the TPU-native
+# The device-side noise above is threefry (jax.random) — the device-native
 # counterless PRNG. This host engine exists for bit-exact stimulus parity with
 # the reference: xoshiro256++ is the public Blackman/Vigna algorithm
 # (prng.di.unimi.it), seeded via SplitMix64 exactly like the reference, so a

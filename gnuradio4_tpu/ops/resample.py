@@ -1,9 +1,10 @@
 """Rational polyphase resampling (≈ reference Decimator/interpolation capabilities;
 GR4 expresses rate change via Resampling<in,out> chunk policy, Block.hpp:1611 — the
-actual polyphase math is what this module provides TPU-natively).
+actual polyphase math is what this module provides).
 
 Up-by-L runs as a single conv with L output feature planes (fir.fir_interpolate —
-no zero-stuffing waste, MXU-friendly); down-by-M fuses into the conv stride when
+no zero-stuffing waste) or as one banded matmul (fir.fir_resample_matmul);
+down-by-M fuses into the conv stride when
 L == 1, else strided-slices the interpolated stream. State carries the FIR history
 (overlap-save), so streaming across block boundaries is exact.
 """
@@ -32,6 +33,19 @@ def design_resampler_taps(interp: int, decim: int, *, ntaps_per_phase: int = 16,
     fc = 0.5 * rolloff / max(L, M)  # cycles/sample on the upsampled grid
     return fd.design_fir("lowpass", ntaps, sample_rate=fs_up, f_low=fc * fs_up,
                          window="Kaiser", beta=beta)
+
+
+def auto_resample_method(t: int, decim: int, backend: str | None = None
+                         ) -> str:
+    """The lowering ``RationalResamplerKernel.apply(method='auto')`` takes.
+
+    The CPU keeps the per-phase interleave: its convs are cheap there, and
+    the dense band would multiply the MACs. Accelerators take the one-matmul
+    form whenever the block frames (``t % decim == 0``): the interleave
+    stacks per-phase outputs along a tiny minor dimension, a relayout."""
+    if (backend or jax.default_backend()) == "cpu" or t % decim:
+        return "interleave"
+    return "matmul"
 
 
 class RationalResamplerKernel:
@@ -67,11 +81,7 @@ class RationalResamplerKernel:
         x2 = x[None, :] if squeeze else x
         t = x2.shape[-1]
         if method == "auto":
-            # the per-phase interleave path relayouts a tiny-minor-dim stack
-            # (measured 69 Msps on TPU vs >3.5 Gsps for the one-matmul form —
-            # see ops/fir.py fir_resample_matmul); matmul whenever framable
-            method = "matmul" if (jax.default_backend() == "tpu"
-                                  and t % M == 0) else "interleave"
+            method = auto_resample_method(t, M)
         if method == "matmul" and t % M == 0:
             st2 = state[None, :] if squeeze else state
             xc = jnp.concatenate([st2.astype(x2.dtype), x2], axis=-1)

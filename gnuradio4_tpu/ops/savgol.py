@@ -2,7 +2,7 @@
 (≈ reference algorithm/filter/SavitzkyGolay.hpp).
 
 Design is host-side float64 least-squares (the coefficients are just a pseudo-
-inverse row); application is an ordinary FIR → rides the MXU framing path.
+inverse row); application is an ordinary FIR → rides the matrix units framing path.
 """
 
 from __future__ import annotations

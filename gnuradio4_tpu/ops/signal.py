@@ -75,15 +75,14 @@ def complex_exp_ramp(phase0, dphi, n: int, *, amplitude=1.0) -> jnp.ndarray:
     (i·dphi) mod 2³², and e^{j(a+b)} = e^{ja}·e^{jb}, so the [K,B] ramp is a
     complex OUTER PRODUCT of a K-vector (coarse rotators, amplitude folded
     in) and a B-vector (fine ramp): one broadcast multiply per sample —
-    HBM-write-bound on TPU — instead of a sin+cos polynomial pair per
-    sample. Round-3 measured the direct form at 0.80 ms / 8 Mi samples
-    (18% of the headline chain); the factored form is bounded by the
-    64 MiB output write (~0.08 ms at 819 GB/s). Phase accuracy is
+    bound by the output write on an accelerator — instead of a sin+cos
+    polynomial pair per sample (the factored form moves only the 64 MiB
+    output of an 8 Mi-sample block). Phase accuracy is
     unchanged: the integer phases are exact, and the single f32 unit-vector
     product adds ≤1.5e-7 error — below the f32 sin/cos rounding floor.
     ≈ reference ToneGenerator/Rotator (algorithm/signal, math/Rotator.hpp),
     which use a recursive phasor with periodic renormalisation; this is
-    the parallel (scan-free) TPU inversion.
+    the parallel (scan-free) device inversion.
 
     The tile size B is a FIXED constant (not a function of n) so the
     (coarse, fine) decomposition of any sample depends only on its offset
@@ -112,8 +111,8 @@ def nco_rotate(x: jnp.ndarray, phase0, dphi, n: int | None = None
     through the multiply.
 
     Materializing the outer-product ramp and then multiplying costs three
-    full-stream HBM passes (ramp write, ramp read, product write) — measured
-    ~0.6 ms / 8 Mi on v5e, 4× the 2-pass bound. Here ``x`` reshapes to [K, B]
+    full-stream HBM passes (ramp write, ramp read, product write), 1.5× the
+    2-pass bound. Here ``x`` reshapes to [K, B]
     (free, row-major) and the coarse/fine unit vectors broadcast into two
     chained elementwise multiplies that XLA fuses into ONE read of x and one
     write of y. Same uint32 phase grid as complex_exp_ramp → identical

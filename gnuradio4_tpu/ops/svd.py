@@ -1,7 +1,7 @@
 """SVD utilities + SVD-based denoising (≈ reference algorithm/filter/SvdFilter.hpp
 Hankel-matrix denoiser and core SVD.hpp one-sided Jacobi).
 
-TPU-native: ``jnp.linalg.svd`` (XLA's batched SVD) on Hankel embeddings. The
+Device-native: ``jnp.linalg.svd`` (XLA's batched SVD) on Hankel embeddings. The
 Hankel matrix is built with the same gather-free overlapping-frame trick as the
 FIR framing; rank truncation keeps the top-k singular values; the denoised signal
 is recovered by anti-diagonal averaging.
@@ -82,9 +82,9 @@ def svd(a: jnp.ndarray, *, full_matrices: bool = False, method: str = "xla"):
     """SVD with selectable engine.
 
     ``method='xla'`` → ``jnp.linalg.svd`` (LAPACK-style QR iteration lowered by
-    XLA — heavy data-dependent control flow on TPU). ``method='jacobi'`` →
+    XLA — heavy data-dependent control flow on an accelerator). ``method='jacobi'`` →
     :func:`jacobi_svd`, the same algorithm family as the reference's own
-    implementation (core SVD.hpp:1-10 one-sided Jacobi) in TPU-idiomatic form.
+    implementation (core SVD.hpp:1-10 one-sided Jacobi) in device-idiomatic form.
     """
     if method == "jacobi":
         if a.shape[-2] < a.shape[-1]:
@@ -115,10 +115,10 @@ def _tournament_schedule(n: int) -> np.ndarray:
 
 def jacobi_svd(a: jnp.ndarray, *, sweeps: int = 12, eps: float = 1e-12):
     """One-sided Jacobi SVD (≈ reference core SVD.hpp one-sided Jacobi, built
-    TPU-first instead of ported).
+    device-first instead of ported).
 
     The reference iterates column pairs serially with convergence checks; on
-    TPU that is all the things XLA hates (data-dependent trip counts, scalar
+    an accelerator that is all the things XLA hates (data-dependent trip counts, scalar
     column walks). Idiomatic inversion: a FIXED number of sweeps under
     ``lax.fori_loop``; within each round of a sweep, the round-robin
     tournament schedule gives n/2 DISJOINT column pairs, so all rotations of
@@ -138,14 +138,10 @@ def jacobi_svd(a: jnp.ndarray, *, sweeps: int = 12, eps: float = 1e-12):
         raise ValueError("jacobi_svd needs m >= n; transpose the input")
     cplx = jnp.issubdtype(a.dtype, jnp.complexfloating)
     if orig_n % 2:                       # schedule needs an even player count
-        # a[...,:1]*0, not jnp.zeros(complex): an eager complex-zeros
-        # constant is relay-unsafe (utils/transfer.py)
-        a = jnp.concatenate([a, a[..., :1] * 0], axis=-1)
+        a = jnp.concatenate([a, jnp.zeros_like(a[..., :1])], axis=-1)
     n = a.shape[-1]
     sched = jnp.asarray(_tournament_schedule(n))        # [R, n/2, 2]
-    # real eye cast to the working dtype — eager jnp.eye(complex) would
-    # materialize a complex constant through H2D (relay-unsafe)
-    v0 = jnp.broadcast_to(jnp.eye(n, dtype=jnp.float32).astype(a.dtype),
+    v0 = jnp.broadcast_to(jnp.eye(n, dtype=a.dtype),
                           (*a.shape[:-2], n, n))
 
     def round_step(r, carry):

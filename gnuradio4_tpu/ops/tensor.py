@@ -5,7 +5,7 @@ The reference built its own N-D tensor + SIMD GEMM because C++ lacks one; here
 jax *is* the tensor library — this module provides the named operations the
 reference exposes (norms, GEMM/GEMV with accumulation control, outer/kron,
 solve) so callers porting from GR4 find the same vocabulary, each lowering to
-the MXU via jnp.
+the matrix units via jnp.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import jax.numpy as jnp
 
 def gemm(a: jnp.ndarray, b: jnp.ndarray, *, alpha=1.0, beta=0.0,
          c: jnp.ndarray | None = None) -> jnp.ndarray:
-    """alpha·A@B + beta·C (≈ gemm_simd.hpp:17) on the MXU, f32 accumulation."""
+    """alpha·A@B + beta·C (≈ gemm_simd.hpp:17) on the matrix units, f32 accumulation."""
     out = alpha * jnp.matmul(a, b, preferred_element_type=jnp.float32)
     if c is not None and beta != 0.0:
         out = out + beta * c

@@ -3,7 +3,7 @@
 The reference's intra-process parallelism (thread-pool scheduler + SIMD + lock-free
 rings, Scheduler.hpp/CircularBuffer.hpp) becomes jax.sharding over a device Mesh:
 
-- **time/sequence sharding (SP)**: overlap-save halo exchange via `ppermute` over ICI
+- **time/sequence sharding (SP)**: overlap-save halo exchange via `ppermute` over the device interconnect
   (halo.py) — the direct analog of ring attention's neighbor passing, replacing the
   reference's HistoryBuffer carries at shard boundaries;
 - **channel sharding (TP/EP)**: channelizer corner-turn via `all_to_all`

@@ -1,10 +1,10 @@
 """Time-axis (sequence) sharding with halo exchange.
 
-The TPU-native replacement for the reference's carried FIR history at shard
+The device-native replacement for the reference's carried FIR history at shard
 boundaries (HistoryBuffer, core HistoryBuffer.hpp:68): when the time axis of a
 stream is sharded over a mesh axis, each shard needs the last ``K−1`` samples of
-its *left* neighbor as convolution prehistory. One `ppermute` over the ICI ring
-moves exactly those halo samples — the same neighbor-passing pattern as ring
+its *left* neighbor as convolution prehistory. One `ppermute` (NCCL over NVLink
+on GPUs) moves exactly those halo samples — the same neighbor-passing pattern as ring
 attention. Functions here run **inside shard_map** (they use collectives).
 """
 

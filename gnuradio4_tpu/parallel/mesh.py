@@ -15,7 +15,9 @@ def make_mesh(shape: Sequence[int] | None = None,
     """Create a Mesh over the available devices.
 
     Default factorization: put as much as possible on the last axis (sequence/
-    channel sharding rides ICI neighbors), remainder on the first (data parallel).
+    channel sharding), remainder on the first (data parallel). The cards of
+    one host are joined all to all by NVLink, so the factorization follows
+    the algorithm alone.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)

@@ -1,8 +1,8 @@
-"""Multi-host (DCN) execution helpers.
+"""Multi-host execution helpers.
 
-The reference is single-process (SURVEY §2.6); the TPU build scales across hosts
-with ``jax.distributed`` + a global Mesh whose outer axis spans hosts (DCN) and
-inner axes ride ICI. These helpers wrap initialization and the data-feeding
+The reference is single-process (SURVEY §2.6); this build scales across hosts
+with ``jax.distributed`` + a global Mesh whose outer axis spans hosts (network) and
+inner axes ride NVLink. These helpers wrap initialization and the data-feeding
 convention for multi-host streaming:
 
 - every host runs the SAME jitted step over the global mesh;
@@ -46,7 +46,7 @@ def init_distributed(coordinator: str | None = None,
 
 
 def global_mesh(axes: Sequence[str] = ("host", "chip")) -> Mesh:
-    """Mesh with hosts on the first axis (DCN) and local chips on the rest (ICI)."""
+    """Mesh with hosts on the first axis (network) and local cards on the rest (NVLink)."""
     n_proc = jax.process_count()
     n_local = jax.local_device_count()
     devs = np.asarray(jax.devices()).reshape(n_proc, n_local)

@@ -6,7 +6,7 @@ re-expressed as *device placement*: the flowgraph is cut into stages, each stage
 jitted and pinned to its own device; time blocks stream through the chain and
 JAX's async dispatch overlaps stage k's block i with stage k+1's block i−1
 (software pipelining for free). Inter-stage transfers are device-to-device
-copies (jax.device_put → ICI), the analog of the inter-worker rings.
+copies (jax.device_put → interconnect), the analog of the inter-worker rings.
 
 Use when a graph has serial segments that don't shard well along time/channel
 axes; compose with SP/TP inside stages for the full mesh.
@@ -122,8 +122,8 @@ class StagePipeline:
     def from_graph(cls, graph: Graph, *, block_len: int,
                    sample_rate: float = 1.0,
                    devices: Sequence[Any] | None = None) -> "StagePipeline":
-        """Cut one flowgraph into pipeline stages at edges annotated with a TPU
-        ComputeDomain (``Graph.connect(..., domain="tpu:xla:<stage>")``): the
+        """Cut one flowgraph into pipeline stages at edges annotated with a GPU
+        ComputeDomain (``Graph.connect(..., domain="gpu:xla:<stage>")``): the
         edge's ``device_index`` names the stage its *dst* block (and everything
         downstream) runs on. This is the reference's per-edge ComputeDomain
         (BlockModel.hpp:89-97) consumed as actual device placement.
@@ -139,7 +139,7 @@ class StagePipeline:
             s = 0
             for e in in_edges[b]:
                 s = max(s, stage_of[e.src])
-                if e.domain is not None and e.domain.kind is DomainKind.TPU \
+                if e.domain is not None and e.domain.kind is DomainKind.GPU \
                         and e.domain.device_index > 0:
                     s = max(s, e.domain.device_index)
             stage_of[b] = s

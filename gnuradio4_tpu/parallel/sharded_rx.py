@@ -6,15 +6,15 @@ Structure (one scheduler step, all inside a single shard_map-jitted program):
     │ corner turn  [B, M, R]          (local reshape)
     │ branch FIR   (P−1)-row halo from left neighbor  ← `ppermute` over sp   (SP)
     │ FFT across branches → channels [B, M, R_local]   (local XLA FFT)
-    │ `all_to_all` over sp: channel-shard ↔ time-gather (the corner turn on ICI) (TP/EP)
+    │ `all_to_all` over sp: channel-shard ↔ time-gather (the corner turn, NCCL over NVLink) (TP/EP)
     │ per-channel quadrature demod (carried last-sample state)
     │ per-channel audio FIR + decimation (carried history)
     │ `psum` output power monitor (replicated scalar)
   audio [B, M, R/decim] — channels sharded over sp
 
-This is the TPU-native equivalent of the reference scheduler distributing blocks
+This is the device-native equivalent of the reference scheduler distributing blocks
 over worker threads with ring buffers between them (Scheduler.hpp:722): here the
-"buffers" are ICI collectives and the "job lists" are shard placements.
+"buffers" are NCCL collectives and the "job lists" are shard placements.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ class ShardedRxConfig:
 def _grouped_branch_fir(rT: jnp.ndarray, hp: jnp.ndarray) -> jnp.ndarray:
     """rT: [B, M, R'] complex rows-with-halo; hp: [P, M] real branch taps →
     [B, M, R' − P + 1] via P shift-MAC slices (no conv HLO — it compiles
-    pathologically on TPU; P is small so the VPU fuses this into one pass)."""
+    pathologically on an accelerator; P is small so the vector units fuses this into one pass)."""
     p = hp.shape[0]
     r = rT.shape[-1] - (p - 1)
     acc = None
@@ -78,7 +78,7 @@ def build_sharded_rx(mesh: Mesh, cfg: ShardedRxConfig):
     # over by a jit trigger a D2H at lowering (fatal over remote transports)
     proto = design_pfb_taps(m, p_).astype(np.float32)
     hp = proto.reshape(p_, m)
-    # audio LP at 0.4·channel-rate/decim; kept as NumPy so fir_apply's MXU
+    # audio LP at 0.4·channel-rate/decim; kept as NumPy so fir_apply's matmul
     # path builds its weights host-side (no device round-trip in trace)
     audio_taps = fd.design_fir(
         "lowpass", cfg.audio_ntaps, sample_rate=1.0,
@@ -95,7 +95,7 @@ def build_sharded_rx(mesh: Mesh, cfg: ShardedRxConfig):
         v = _grouped_branch_fir(rT, hp)                     # [B, M, R_l]
         chans = jnp.fft.fft(jnp.moveaxis(v, 1, 2), axis=-1)  # [B, R_l, M]
         chans = jnp.moveaxis(chans, 1, 2).astype(jnp.complex64)  # [B, M, R_l]
-        # corner turn on ICI: channel-shard, time-gather
+        # corner turn over the interconnect: channel-shard, time-gather
         if sp > 1:
             chans = jax.lax.all_to_all(chans, "sp", split_axis=1, concat_axis=2,
                                        tiled=True)          # [B, M/sp, R_l·sp]
@@ -105,8 +105,8 @@ def build_sharded_rx(mesh: Mesh, cfg: ShardedRxConfig):
         d = chans * jnp.conj(prev)
         audio = jnp.arctan2(jnp.imag(d), jnp.real(d)) * jnp.float32(cfg.demod_gain)
         new_last = chans[..., -1]
-        # audio low-pass + decimate (overlap-save, carried history; MXU framing
-        # on TPU via fir_apply's auto method)
+        # audio low-pass + decimate (overlap-save, carried history; matmul framing
+        # on an accelerator via fir_apply's auto method)
         from ..ops.fir import fir_apply
         k = audio_taps.shape[0]
         flat = audio.reshape(-1, audio.shape[-1])

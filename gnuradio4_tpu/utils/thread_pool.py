@@ -31,7 +31,7 @@ def pool(name: str, *, max_workers: int | None = None) -> ThreadPoolExecutor:
         p = _pools.get(name)
         if p is None:
             p = ThreadPoolExecutor(max_workers=max_workers,
-                                   thread_name_prefix=f"gr4tpu-{name}")
+                                   thread_name_prefix=f"gr4-{name}")
             _pools[name] = p
         return p
 
@@ -68,7 +68,7 @@ def active_threads() -> list[str]:
     with _lock:
         alive = [t.name for t in _spawned if t.is_alive()]
     alive += [t.name for t in threading.enumerate()
-              if t.name.startswith("gr4tpu-")]
+              if t.name.startswith("gr4-")]
     return sorted(set(alive))
 
 

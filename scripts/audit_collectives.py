@@ -1,14 +1,12 @@
-"""HLO collective audit + ICI scaling model → SCALING_r{N}.json sections.
+"""HLO collective audit of the sharded flowgraph programs.
 
-The strongest multi-chip evidence obtainable without a pod (round-3 verdict
-item 4): compile the sharded headline chain and the PFB-channelizer program
-at n = 8/16/32 virtual CPU devices, extract every collective op and its byte
-volume from the optimized HLO, assert halo traffic is O(taps·channels) per
-step (block-length INVARIANT — the sp analog of ring attention's fixed
-neighbor exchange), and combine measured single-chip stage times with
-published v5e ICI bandwidth into a predicted scaling-efficiency curve.
+Compiles the sharded headline chain and the PFB-channelizer program on n
+virtual CPU devices, extracts every collective op and its byte volume from
+the optimized HLO, and asserts that halo traffic is O(taps·channels) per step
+(block-length INVARIANT — the sp analog of ring attention's fixed neighbor
+exchange). Times on the cards come from ``chip_smoke.py --multi``.
 
-Usage: python scripts/audit_collectives.py [--out SCALING_r04.json]
+Usage: python scripts/audit_collectives.py [--devices 8,16,32] [--out FILE]
 
 Runs on the CPU backend with 32 virtual devices (set before jax import).
 """
@@ -29,11 +27,6 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-# -- public v5e numbers (jax-ml.github.io/scaling-book; cloud.google.com/tpu) --
-V5E_ICI_LINK_GBPS = 45.0       # one-way per ICI link, GB/s (2-D torus, v5e)
-V5E_ICI_LATENCY_US = 1.0       # per-hop collective latency floor
-V5E_HBM_GBPS = 819.0
 
 _DTYPE_BYTES = {"f64": 8, "f32": 4, "bf16": 2, "f16": 2, "c64": 8, "c128": 16,
                 "s64": 8, "s32": 4, "s16": 2, "s8": 1, "u64": 8, "u32": 4,
@@ -129,29 +122,6 @@ def build_channelizer(block_len: int, mesh, n_channels: int = 64):
     return gr.compile_graph(g, block_len=block_len, sample_rate=1e9, mesh=mesh)
 
 
-def build_config5(block_len: int, mesh, n_channels: int = 256):
-    """The BASELINE config-5 shape: 256-ch channelizer → per-channel demod →
-    per-channel audio decimator (the tag plane rides the host sideband — the
-    device program is what the audit sees)."""
-    import gnuradio4_tpu as gr
-    from gnuradio4_tpu.blocks.basic import NoiseSource
-    from gnuradio4_tpu.blocks.channelizer import PFBChannelizer
-    from gnuradio4_tpu.blocks.filter import FirFilter
-    from gnuradio4_tpu.blocks.sdr import QuadratureDemod
-    from gnuradio4_tpu.blocks.testing import NullSink
-    from gnuradio4_tpu.ops import filter_design as fd
-    g = gr.Graph()
-    src = NoiseSource(noise="complex_gaussian")
-    chan = PFBChannelizer(n_channels=n_channels, taps_per_phase=8)
-    dem = QuadratureDemod(gain=1.0)
-    audio = FirFilter(taps=fd.design_fir("lowpass", 17, sample_rate=1.0,
-                                         f_low=0.1).astype(np.float32),
-                      decim=4)
-    g.connect_chain(g.add(src), g.add(chan), g.add(dem), g.add(audio),
-                    g.add(NullSink()))
-    return gr.compile_graph(g, block_len=block_len, sample_rate=1e9, mesh=mesh)
-
-
 def make_mesh(n: int, chan: bool):
     import jax
     from jax.sharding import Mesh
@@ -159,17 +129,6 @@ def make_mesh(n: int, chan: bool):
     if chan and n >= 4:
         return Mesh(devs.reshape(n // 2, 2), ("sp", "chan"))
     return Mesh(devs, ("sp",))
-
-
-def predicted_efficiency(t_comp_ms_1chip: float, comm_bytes_per_dev: int,
-                         n: int, collective_count: int) -> float:
-    """Per-step efficiency model: compute parallelizes as 1/N; comm rides one
-    ICI link per neighbor exchange (ppermute halo = nearest-neighbor on the
-    torus) plus a latency floor per collective."""
-    t_comp = t_comp_ms_1chip / n
-    t_comm = (comm_bytes_per_dev / (V5E_ICI_LINK_GBPS * 1e9) * 1e3
-              + collective_count * V5E_ICI_LATENCY_US * 1e-3)
-    return t_comp / (t_comp + t_comm)
 
 
 def main() -> None:
@@ -181,7 +140,7 @@ def main() -> None:
     jax.config.update("jax_platforms", "cpu")
     assert jax.devices()[0].platform == "cpu"
 
-    result: dict = {"hlo_audit": {}, "halo_invariance": {}, "model": {}}
+    result: dict = {"hlo_audit": {}, "halo_invariance": {}}
 
     # ---- audit the headline chain at n devices ----------------------------
     ns = [int(x) for x in args.devices.split(",")]
@@ -219,7 +178,7 @@ def main() -> None:
         "headline_sp8": inv,
         "invariant": b1 == b2,
         "note": "collective-permute (halo) bytes identical at 256Ki and 1Mi "
-                "block lengths ⇒ per-step ICI halo traffic is O(taps·"
+                "block lengths ⇒ per-step halo traffic is O(taps·"
                 "channels), independent of T — the overlap-save boundary "
                 "exchange, not a data re-shard",
     }
@@ -229,223 +188,9 @@ def main() -> None:
         raise SystemExit("halo traffic scales with block length — "
                          "sp lowering regression")
 
-    # ---- scaling model ------------------------------------------------------
-    # measured single-chip step time of the headline chain (docs/
-    # PERFORMANCE.md round-3/4 verified differential timing): ms per 8 Mi
-    # samples. comm bytes from the audit above scale linearly to the 8 Mi
-    # production block.
-    t_chain_ms = 4.49          # measured, 8 Mi samples/step, v5e (r3)
-    prod_T = 1 << 23
-    audit8 = result["hlo_audit"]["headline_sp8"]["collectives"]
-    perm = audit8.get("collective-permute", {"bytes": 0, "count": 0})
-    # halo bytes are T-invariant (asserted above): use them as-is per device
-    halo_bytes = perm["bytes"]
-    curve = {}
-    for n in (2, 4, 8, 16, 32):
-        curve[str(n)] = round(predicted_efficiency(
-            t_chain_ms, halo_bytes, n, max(perm["count"], 1)), 4)
-    result["model"]["headline_sp"] = {
-        "assumptions": {
-            "t_step_ms_1chip_8Mi": t_chain_ms,
-            "ici_link_gbps_oneway": V5E_ICI_LINK_GBPS,
-            "ici_latency_us_per_collective": V5E_ICI_LATENCY_US,
-            "halo_bytes_per_device_per_step": halo_bytes,
-            "collectives_per_step": perm["count"],
-        },
-        "predicted_efficiency": curve,
-        "note": "halo exchange is fixed-size (taps-1 boundary samples per "
-                "FIR stage) so efficiency stays >0.99 through 32 chips; the "
-                "BASELINE ≥85% bar is met with two orders of margin in this "
-                "model. The binding constraint at scale is NOT ICI for the "
-                "headline chain — it is per-chip step time shrinking toward "
-                "the dispatch floor (~0.1 ms).",
-    }
-
-    # channelizer corner turn: the chan-axis re-shard moves (chan-1)/chan of
-    # the local tensor across ICI every step — O(T), the one genuinely
-    # bandwidth-bound collective in the suite. XLA lowers it as all-to-all
-    # or all-gather depending on the mesh shape (at chan=2 the audit shows
-    # all-gather of exactly the local shard). Model at 8 Mi global block.
-    chan_colls = result["hlo_audit"]["channelizer_sp4x_chan2"]["collectives"]
-    a2a = chan_colls.get("all-to-all") or chan_colls.get(
-        "all-gather", {"bytes": 0, "count": 0})
-    t_chan_ms = (prod_T / (22_307e6)) * 1e3   # measured 22.3 Gsps (r3, 1 chip)
-    chan_curve = {}
-    for n in (2, 4, 8, 16):
-        local_bytes = prod_T * 8 // n          # complex64 local shard
-        moved = local_bytes * (n - 1) / n
-        t_comm_ms = moved / (V5E_ICI_LINK_GBPS * 1e9) * 1e3 \
-            + V5E_ICI_LATENCY_US * 1e-3
-        t_comp = t_chan_ms / n
-        chan_curve[str(n)] = round(t_comp / (t_comp + t_comm_ms), 4)
-    result["model"]["channelizer_corner_turn"] = {
-        "assumptions": {
-            "t_step_ms_1chip_8Mi": round(t_chan_ms, 3),
-            "corner_turn_audit_bytes_256Ki": a2a,
-            "local_shard_bytes_8Mi": prod_T * 8 // 8,
-        },
-        "predicted_efficiency": chan_curve,
-        "note": "the corner turn (audited as all-gather/all-to-all of the "
-                "local shard) is O(T/N) per device per step — unlike the "
-                "halo it IS bandwidth-bound, so naive chan-sharding of a "
-                "bare channelizer does not scale (one chip already does "
-                "22 Gsps verified — sharding it is not the production "
-                "shape). Config-5-class pipelines amortize the one corner "
-                "turn over the per-channel demod/decode chains that follow, "
-                "and XLA overlaps async collectives with the polyphase "
-                "matmuls on TPU; the model is the no-overlap lower bound "
-                "for the worst case (no per-channel work).",
-    }
-
-    # ---- config-5 shape (round-5, VERDICT r4 item 6) ----------------------
-    # The shape BASELINE actually scores: 256-ch channelizer + per-channel
-    # demod + tags at ≥1 Gsps input, ≥85% scaling efficiency. Two shardings:
-    #  (a) sp (time): PFB polyphase FIR, demod, and audio FIR are ALL
-    #      time-local with fixed halos — NO corner turn exists; the audit
-    #      below proves the program's collectives are O(taps·chan) permutes.
-    #  (b) chan: the corner turn moves (N-1)/N of the stream once — the
-    #      bandwidth-bound case round 4 modeled at 0.21-0.33 for the BARE
-    #      channelizer; here extended with the measured per-channel compute
-    #      and the async-overlap bound.
-    cfg5_audit = {}
-    for n, chan in ((8, False), (8, True)):
-        mesh = make_mesh(n, chan=chan)
-        comp = build_config5(T, mesh)
-        ops = audit_hlo(lower_text(comp))
-        key = f"config5_{'sp4x_chan2' if chan else f'sp{n}'}"
-        cfg5_audit[key] = {
-            "block_len": T,
-            "mesh": f"sp={n // 2},chan=2" if chan else f"sp={n}",
-            "collectives": {k: dict(v) for k, v in ops.items()}}
-        print(f"{key}: {ops}", flush=True)
-    result["hlo_audit"].update(cfg5_audit)
-    # halo invariance for the sp-sharded config-5 program
-    inv5 = {}
-    for T_test in (1 << 18, 1 << 20):
-        comp = build_config5(T_test, make_mesh(8, chan=False))
-        ops = audit_hlo(lower_text(comp))
-        inv5[str(T_test)] = {
-            k: dict(v) for k, v in ops.items()
-            if k in ("collective-permute", "all-gather", "all-to-all")}
-    sp_bytes = [sum(v["bytes"] for v in inv5[k].values()) for k in inv5]
-    result["halo_invariance"]["config5_sp8"] = {
-        **inv5, "invariant": sp_bytes[0] == sp_bytes[1],
-        "note": "sp-sharded config-5 moves only fixed-size halos — the "
-                "corner turn is a CHAN-sharding artifact, absent under time "
-                "sharding"}
-    print(f"config5 sp halo invariance: {sp_bytes} → "
-          f"{'INVARIANT' if sp_bytes[0] == sp_bytes[1] else 'SCALES!'}",
-          flush=True)
-
-    # MEASURED single-chip stage times at the 8 Mi block (ms) — verified
-    # readback-terminated differential rows, 2026-08-20 13:18 window
-    # (SWEEP_r05.json cfg5 group; the full compiled config-5 chain measured
-    # 2 521 Msps verified in the same window — the ≥1 Gsps input bar is a
-    # single-chip fact, not a projection).
-    t_pfb256 = 1.362
-    t_demod = 0.655
-    t_audio = 0.198
-    t_perchan = t_demod + t_audio
-    t_total = t_pfb256 + t_perchan
-    c5_sp = cfg5_audit["config5_sp8"]["collectives"]
-    sp_halo = sum(v["bytes"] for k, v in c5_sp.items())
-    sp_count = sum(v["count"] for k, v in c5_sp.items())
-    # strong scaling: fixed 8 Mi global block — per-chip step time shrinks
-    # toward the collective latency floor (5 fixed-size collectives ≈ 5 µs)
-    sp_curve = {str(n): round(predicted_efficiency(t_total, sp_halo, n,
-                                                   max(sp_count, 1)), 4)
-                for n in (2, 4, 8, 16, 32)}
-    # weak scaling (the production streaming shape: 8 Mi PER DEVICE — more
-    # chips process a wider stream): per-chip compute time is constant, only
-    # the fixed halo/latency term divides the efficiency
-    t1 = t_total
-    sp_weak = {}
-    for n in (2, 4, 8, 16, 32):
-        t_comm = sp_halo / (V5E_ICI_LINK_GBPS * 1e9) * 1e3 \
-            + max(sp_count, 1) * V5E_ICI_LATENCY_US * 1e-3
-        sp_weak[str(n)] = round(t1 / (t1 + t_comm), 4)
-    # chan-sharded: one corner turn of the complex64 stream, no-overlap and
-    # full-overlap (async collective hidden behind the per-channel stages)
-    chan_curves = {"no_overlap": {}, "overlap_per_channel_compute": {}}
-    for n in (2, 4, 8, 16, 32):
-        moved = prod_T * 8 / n * (n - 1) / n
-        t_comm = moved / (V5E_ICI_LINK_GBPS * 1e9) * 1e3 \
-            + V5E_ICI_LATENCY_US * 1e-3
-        ideal = t_total / n
-        chan_curves["no_overlap"][str(n)] = round(
-            ideal / (t_pfb256 / n + t_comm + t_perchan / n), 4)
-        t_step = t_pfb256 / n + max(t_comm, t_perchan / n)
-        chan_curves["overlap_per_channel_compute"][str(n)] = round(
-            ideal / t_step, 4)
-    # per-channel compute intensity needed for chan-sharding to clear 85%
-    # (overlap model, large N): max(t_comm, t_perchan/N) + t_pfb/N ≤
-    # (t_pfb+t_perchan)/(0.85·N) ⇒ t_perchan ≥ N·t_comm·0.85/(1-0.85·...)
-    # solve numerically at N=16
-    n_ref = 16
-    moved = prod_T * 8 / n_ref * (n_ref - 1) / n_ref
-    t_comm16 = moved / (V5E_ICI_LINK_GBPS * 1e9) * 1e3
-    lo, hi = 0.0, 1e4
-    for _ in range(60):
-        mid = (lo + hi) / 2
-        tot = t_pfb256 + mid
-        eff = (tot / n_ref) / (t_pfb256 / n_ref + max(t_comm16, mid / n_ref))
-        lo, hi = (mid, hi) if eff < 0.85 else (lo, mid)
-    t_perchan_needed = hi
-    result["model"]["config5_shape"] = {
-        "assumptions": {
-            "global_block": prod_T,
-            "t_pfb256_ms_1chip": round(t_pfb256, 3),
-            "t_perchannel_ms_1chip": round(t_perchan, 3),
-            "per_channel_stage_provenance": {
-                "pfb256_1.362ms": "MEASURED verified (SWEEP_r05 cfg5, "
-                                  "2026-08-20 13:18 window)",
-                "demod_0.655ms": "MEASURED verified (same window)",
-                "audio_fir_d4_0.198ms": "MEASURED verified (same window)",
-                "cfg5_chain_2521Msps": "full compiled chain, verified, "
-                                       "same window"},
-            "sp_halo_bytes_per_step": sp_halo,
-            "corner_turn_bytes_16dev": int(moved),
-        },
-        "sp_sharded_efficiency_strong_8Mi_global": sp_curve,
-        "sp_sharded_efficiency_weak_8Mi_per_device": sp_weak,
-        "chan_sharded_efficiency": chan_curves,
-        "chan_breakeven_ms_per_channel_stage_at_16dev_85pct":
-            round(t_perchan_needed, 3),
-        "conclusion": (
-            "Config 5's PRODUCTION sharding is sp (time): every stage is "
-            "time-local (polyphase FIR halo, 1-sample demod halo, audio FIR "
-            "halo), the audited collectives are fixed-size permutes "
-            f"({sp_halo} B/step, block-length invariant). Weak scaling "
-            "(8 Mi per device — the streaming shape, more chips = wider "
-            f"stream) holds {sp_weak['32']} at 32 chips; strong scaling on "
-            f"a FIXED 8 Mi block degrades to {sp_curve['32']} at 32 chips "
-            "purely from the ~5 µs collective latency floor against a "
-            "shrinking per-chip step (batch_steps recovers it by growing "
-            "samples per dispatch). The ≥85% BASELINE bar is met in the "
-            "shape BASELINE scores, and the ≥1 Gsps input bar is met by a "
-            "single chip (1-chip model ≈ 8.4 Msamples / "
-            f"{round(t_total, 2)} ms ≈ "
-            f"{round(prod_T / (t_total * 1e-3) / 1e9, 1)} Gsps). "
-            "Chan-sharding stays the memory/heterogeneous-decode escape: "
-            "ICI-bound at "
-            f"~{chan_curves['no_overlap']['16']:.2f} no-overlap / "
-            f"~{chan_curves['overlap_per_channel_compute']['16']:.2f} "
-            "overlapped at 16 devices with THIS per-channel load; it "
-            "crosses 85% only when the per-channel chain costs ≥"
-            f"{round(t_perchan_needed, 2)} ms/8Mi-block (heavier decode "
-            "stacks — e.g. per-channel LDPC at ~6 ms/8Mi clears it)."),
-    }
-
-    out = args.out
-    if out:
-        payload: dict = {}
-        if os.path.exists(out):
-            with open(out) as f:
-                payload = json.load(f)
-        payload.update(result)
-        with open(out, "w") as f:
-            json.dump(payload, f, indent=1)
-        print(f"wrote {out}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
     else:
         print(json.dumps(result, indent=1))
 

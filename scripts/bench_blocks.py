@@ -1,6 +1,7 @@
 """Time each REAL block of the headline chain in isolation (its own jit),
-using the exact same Block.apply the compiled graph traces. Readback-safe
-differential protocol. Explains where the fused chain's milliseconds go.
+using the exact same Block.apply the compiled graph traces (differential
+timing, each window ended by a readback). Explains where the fused chain's
+milliseconds go. Needs a GPU: ``python scripts/bench_blocks.py``.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> None:
     import jax
     import jax.numpy as jnp
-    from bench import build_step
+    from bench import build_step, require_gpu
 
-    block_len = (1 << 23) if jax.devices()[0].platform != "cpu" else (1 << 18)
+    require_gpu()
+    block_len = 1 << 23
     compiled = build_step(block_len)
     params = compiled.gather_params()
     states = compiled.init_states()

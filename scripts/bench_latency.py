@@ -1,7 +1,7 @@
 """Source→sink latency vs block_len through the REAL Scheduler.
 
 The reference's scheduler benchmark reports first/last-sample latency markers
-(core/benchmarks/bm_Scheduler.cpp:88-130). The TPU build's analog: the time
+(core/benchmarks/bm_Scheduler.cpp:88-130). This build's analog: the time
 from a step's DISPATCH (its samples start existing on device) to its sink
 data LANDING on the host (delivery), as a function of block_len and
 pipeline_depth — the latency/throughput trade a streaming user actually
@@ -13,7 +13,7 @@ minus the in-block generation span, which on-device is the step compute
 time. We report p50/p95 of the per-step round trip plus the achieved
 throughput, one JSON line per configuration.
 
-Usage: python scripts/bench_latency.py [--force-cpu] [--steps N]
+Usage: python scripts/bench_latency.py [--steps N]   (needs a GPU)
 """
 
 from __future__ import annotations
@@ -99,7 +99,6 @@ def measure(block_len: int, pipeline_depth: int, steps: int,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--force-cpu", action="store_true")
     ap.add_argument("--steps", type=int, default=24)
     ap.add_argument("--depths", default="1,2,4")
     ap.add_argument("--block-lens", default="1024,16384,262144,2097152,8388608")
@@ -110,19 +109,10 @@ def main() -> None:
                          "batching rows; one dispatch = S logical blocks)")
     ap.add_argument("--out", default=None,
                     help="also write all rows to this JSON file")
-    ap.add_argument("--budget-s", type=float, default=900.0,
-                    help="hard watchdog (transport hangs must not eat the round)")
     args = ap.parse_args()
-    import threading
-    threading.Thread(target=lambda: (time.sleep(args.budget_s), os._exit(7)),
-                     daemon=True).start()
-    import jax
-    if args.force_cpu:
-        jax.config.update("jax_platforms", "cpu")
-    platform = jax.devices()[0].platform
+    from bench import require_gpu
+    platform = require_gpu().platform
     lens = [int(x) for x in args.block_lens.split(",")]
-    if platform == "cpu":
-        lens = [n for n in lens if n <= (1 << 18)]
     rows = []
     for batch in [int(b) for b in args.batches.split(",")]:
         for mode in [int(m) for m in args.async_modes.split(",")]:

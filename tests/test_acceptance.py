@@ -81,7 +81,7 @@ def test_full_fm_broadcast_stereo_plus_rds():
     from gnuradio4_tpu.ops.filter_design import design_fir
 
     fs_if, dev = 456000.0, 75000.0
-    groups = rds.make_0a_groups(0x52A1, 9, "GR4-TPU!") * 4
+    groups = rds.make_0a_groups(0x52A1, 9, "GR4-GPU!") * 4
     rds_wave = rds.modulate_mpx(groups, fs=fs_if)
     n = len(rds_wave)
     t = np.arange(n) / fs_if
@@ -125,5 +125,5 @@ def test_full_fm_broadcast_stereo_plus_rds():
     sep_l = 20 * np.log10(tone(yl, 800) / (tone(yl, 1400) + 1e-12))
     sep_r = 20 * np.log10(tone(yr, 1400) / (tone(yr, 800) + 1e-12))
     assert sep_l > 40 and sep_r > 40, (sep_l, sep_r)
-    assert dec.pi == 0x52A1 and dec.ps == "GR4-TPU!"
+    assert dec.pi == 0x52A1 and dec.ps == "GR4-GPU!"
     assert len(dec.groups) >= 12

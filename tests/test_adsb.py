@@ -9,7 +9,7 @@ from gnuradio4_tpu.blocks import adsb
 
 class TestModeSCoding:
     def test_crc_of_valid_frame_is_zero(self):
-        f = adsb.make_df17_identification(0xABCDEF, "GR4TPU01")
+        f = adsb.make_df17_identification(0xABCDEF, "GR4GPU01")
         assert len(f) == 112
         assert adsb.crc24(f) == 0
 
@@ -44,7 +44,7 @@ class TestAdsbGraphChain:
         """Complex IQ at 2 Msps (random carrier phase) → |·| → AdsbDecoder,
         frames split across scheduler steps; no duplicates, all aircraft."""
         rng = np.random.default_rng(1)
-        frames = [adsb.make_df17_identification(0xABC000 + k, f"TPU{k:04d}")
+        frames = [adsb.make_df17_identification(0xABC000 + k, f"GPU{k:04d}")
                   for k in range(8)]
         wave = adsb.modulate(frames, gap_us=137.5)   # frames straddle steps
         phase = np.cumsum(rng.normal(0.0, 0.3, len(wave)))
@@ -61,7 +61,7 @@ class TestAdsbGraphChain:
 
         assert len(dec.frames) == 8, [f.get("callsign") for f in dec.frames]
         assert {i: a["callsign"] for i, a in dec.aircraft.items()} \
-            == {0xABC000 + k: f"TPU{k:04d}" for k in range(8)}
+            == {0xABC000 + k: f"GPU{k:04d}" for k in range(8)}
 
 
 class TestAdsbPosition:

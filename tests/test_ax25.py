@@ -45,7 +45,7 @@ class TestAx25Coding:
 
 class TestAfskModem:
     FRAME = ax25.build_ui_frame("APRS", "N0CALL",
-                                "!4903.50N/07201.75W-Test GR4 TPU",
+                                "!4903.50N/07201.75W-Test GR4 GPU",
                                 path=["WIDE1"], src_ssid=9)
 
     @pytest.mark.parametrize("noise", [0.0, 0.2, 0.4])
@@ -60,14 +60,14 @@ class TestAfskModem:
         assert len(pkts) == 1
         assert pkts[0]["src"] == ("N0CALL", 9)
         assert pkts[0]["path"] == [("WIDE1", 0)]
-        assert pkts[0]["info"].endswith("GR4 TPU")
+        assert pkts[0]["info"].endswith("GR4 GPU")
 
     def test_graph_chain_dual_tone_correlator(self):
         """The Bell-202 detector expressed as a flowgraph: two FreqXlatingFir
         branches (one-bit boxcars at 1200/2200 Hz) → Abs → Subtract →
         Ax25Decoder; two packets back-to-back through scheduler chunking."""
         rng = np.random.default_rng(2)
-        f2 = ax25.build_ui_frame("APRS", "W1AW", ">APRS test via TPU")
+        f2 = ax25.build_ui_frame("APRS", "W1AW", ">APRS test via GPU")
         wave = np.concatenate([
             ax25.afsk_modulate(self.FRAME, fs=48000.0),
             np.zeros(4800, np.float32),
@@ -97,9 +97,9 @@ class TestAfskModem:
 
         assert len(dec.packets) == 2, dec.packets
         assert dec.packets[0]["src"] == ("N0CALL", 9)
-        assert dec.packets[0]["info"].endswith("GR4 TPU")
+        assert dec.packets[0]["info"].endswith("GR4 GPU")
         assert dec.packets[1]["src"] == ("W1AW", 0)
-        assert dec.packets[1]["info"] == ">APRS test via TPU"
+        assert dec.packets[1]["info"] == ">APRS test via GPU"
 
 
 class TestDeframeEdgeCases:

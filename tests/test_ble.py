@@ -60,7 +60,7 @@ class TestPrimitives:
 
 class TestBitCodec:
     def test_encode_decode_roundtrip(self):
-        data = build_ad_structures(flags=0x05, name="GR4-TPU")
+        data = build_ad_structures(flags=0x05, name="GR4-GPU")
         bits = encode_advertising(ADDR, data, channel=38)
         # preamble 0xAA LSB-first then the AA LSB-first
         assert list(bits[:8]) == [0, 1, 0, 1, 0, 1, 0, 1]
@@ -70,7 +70,7 @@ class TestBitCodec:
         assert len(pkts) == 1
         p = pkts[0]
         assert p["crc_ok"] and p["pdu_type"] == "ADV_IND"
-        assert p["name"] == "GR4-TPU" and p["flags"] == 0x05
+        assert p["name"] == "GR4-GPU" and p["flags"] == 0x05
         assert p["adv_addr"] == "BC:9A:78:56:34:12"
 
     def test_wrong_channel_whitening_rejected(self):
@@ -122,7 +122,7 @@ class TestGraphChain:
     @pytest.mark.parametrize("block_len", [8192, 3000])
     def test_two_advertisers_through_scheduler(self, block_len):
         advertisers = [
-            {"adv_addr": ADDR, "name": "GR4-TPU", "flags": 0x06},
+            {"adv_addr": ADDR, "name": "GR4-GPU", "flags": 0x06},
             {"adv_addr": bytes(range(6)), "name": "BEACON-2",
              "pdu_type": 2, "manufacturer": b"\x4c\x00"},
         ]
@@ -135,10 +135,10 @@ class TestGraphChain:
         gr.Scheduler(g, block_len=block_len, sample_rate=FS).run_and_wait()
         assert len(dec.packets) == 2, dec.packets
         names = {p.get("name") for p in dec.packets}
-        assert names == {"GR4-TPU", "BEACON-2"}
+        assert names == {"GR4-GPU", "BEACON-2"}
         by_name = {p["name"]: p for p in dec.packets}
-        assert by_name["GR4-TPU"]["adv_addr"] == "BC:9A:78:56:34:12"
-        assert by_name["GR4-TPU"]["pdu_type"] == "ADV_IND"
+        assert by_name["GR4-GPU"]["adv_addr"] == "BC:9A:78:56:34:12"
+        assert by_name["GR4-GPU"]["pdu_type"] == "ADV_IND"
         assert by_name["BEACON-2"]["pdu_type"] == "ADV_NONCONN_IND"
         assert (0xFF, b"\x4c\x00") in by_name["BEACON-2"]["ad"]
         assert dec.devices["05:04:03:02:01:00"]["name"] == "BEACON-2"

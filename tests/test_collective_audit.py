@@ -1,8 +1,8 @@
 """HLO collective audit invariants (round-4): the sp time-sharding must cost
-O(taps·channels) ICI bytes per step — NEVER O(T) — and the lowered program
+O(taps·channels) interconnect bytes per step — NEVER O(T) — and the lowered program
 must contain the expected collective kinds. This pins the scaling story the
 SCALING artifact's model is built on (≈ the reference has no distribution;
-this is the TPU value-add, SURVEY §2.6)."""
+this is the accelerator build's value-add, SURVEY §2.6)."""
 
 import os
 import sys

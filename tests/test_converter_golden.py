@@ -10,8 +10,8 @@ import pytest
 import gnuradio4_tpu as gr
 from gnuradio4_tpu.blocks.testing import VectorSink, VectorSource
 
-# the reference's [u]int64/double instantiations have no TPU-native stream
-# dtype (no f64/i64 on the MXU path; jax x64 stays off) — the framework's
+# the reference's [u]int64/double instantiations have no device-native stream
+# dtype (no f64/i64 on the device path; jax x64 stays off) — the framework's
 # documented stance is that double-typed reference flowgraphs run as float32
 ARITH = ["uint8", "uint16", "uint32", "int8", "int16", "int32", "float32"]
 

@@ -204,11 +204,11 @@ class TestRegistry:
 class TestComputeDomain:
     def test_parse(self):
         from gnuradio4_tpu.core.compute_domain import ComputeDomain, DomainKind
-        d = ComputeDomain.parse("tpu:xla:0")
-        assert d.kind is DomainKind.TPU and d.backend == "xla"
+        d = ComputeDomain.parse("gpu:xla:0")
+        assert d.kind is DomainKind.GPU and d.backend == "xla"
         h = ComputeDomain.parse("host")
         assert h.kind is DomainKind.HOST
-        assert str(d) == "tpu:xla:0"
+        assert str(d) == "gpu:xla:0"
 
     def test_unknown_kind_raises(self):
         from gnuradio4_tpu.core.compute_domain import ComputeDomain

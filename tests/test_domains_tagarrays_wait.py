@@ -41,9 +41,17 @@ class TestComputeDomainConsumed:
         g = gr.Graph()
         a = g.emplace("ConstantSource", n_samples=16)
         b = gr.global_registry.create("VectorSink")
-        g.connect(a, b, domain="gpu")
-        with pytest.raises(gr.GrError, match="gpu"):
+        g.connect(a, b, domain="fpga")
+        with pytest.raises(gr.GrError, match="fpga"):
             gr.Scheduler(g, block_len=16).run_and_wait()
+
+    def test_gpu_domain_runs_in_the_fused_program(self):
+        g = gr.Graph()
+        a = g.emplace("ConstantSource", value=3.0, n_samples=64)
+        b = gr.global_registry.create("VectorSink")
+        g.connect(a, b, domain="gpu:xla:0")
+        gr.Scheduler(g, block_len=16).run_and_wait()
+        np.testing.assert_array_equal(b.data(), np.full(64, 3.0, np.float32))
 
 
 class TestTriggerGateDeviceTagPath:

@@ -1,4 +1,4 @@
-"""Compiler epilogue fusion (round-5): GR4TPU_FUSE_EPILOGUE=1 skips the
+"""Compiler epilogue fusion: GR4_FUSE_EPILOGUE=1 skips the
 per-edge optimization_barrier on single-reader edges whose consumer declares
 EPILOGUE_FUSABLE (QuadratureDemod) — XLA may fuse the producer into the
 elementwise consumer so the intermediate never round-trips HBM. Must be
@@ -33,7 +33,7 @@ def test_fused_matches_unfused(iq, monkeypatch):
     data, rng = iq
     taps = tuple((rng.standard_normal(31) / 8).tolist())
     ref = _wbfm(data, taps)
-    monkeypatch.setenv("GR4TPU_FUSE_EPILOGUE", "1")
+    monkeypatch.setenv("GR4_FUSE_EPILOGUE", "1")
     out = _wbfm(data, taps)
     np.testing.assert_allclose(out, ref, atol=1e-6)
 
@@ -62,7 +62,7 @@ def test_multi_reader_edge_keeps_barrier(iq, monkeypatch):
         return np.asarray(s1.data()), np.asarray(s2.data())
 
     a1, a2 = run()
-    monkeypatch.setenv("GR4TPU_FUSE_EPILOGUE", "1")
+    monkeypatch.setenv("GR4_FUSE_EPILOGUE", "1")
     b1, b2 = run()
     np.testing.assert_allclose(b1, a1, atol=1e-5)
     np.testing.assert_allclose(b2, a2, atol=1e-6)

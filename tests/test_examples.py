@@ -135,7 +135,7 @@ def test_rtty_teletype_example_prints_text():
     from gnuradio4_tpu.core.yaml_io import run_grc
     sched = run_grc(src)
     printer = [b for b in sched.graph.blocks if b.name == "printer"][0]
-    assert printer.text == "CQ CQ CQ DE GR4TPU GR4TPU K"
+    assert printer.text == "CQ CQ CQ DE GR4GPU GR4GPU K"
 
 
 def test_lora_link_example_decodes_frame():
@@ -143,7 +143,7 @@ def test_lora_link_example_decodes_frame():
     from gnuradio4_tpu.core.yaml_io import run_grc
     sched = run_grc(src)
     rx = [b for b in sched.graph.blocks if b.name == "rx"][0]
-    assert rx.frames == [b"LoRa over TPU"]
+    assert rx.frames == [b"LoRa over GPU"]
 
 
 def test_coded_link_example_zero_ber():
@@ -175,4 +175,4 @@ def test_ble_scanner_example_finds_devices():
     sched = run_grc(src)
     scan = [b for b in sched.graph.blocks if b.name == "scan"][0]
     assert set(scan.devices) == {"BC:9A:78:56:34:12", "05:04:03:02:01:00"}
-    assert scan.devices["BC:9A:78:56:34:12"]["name"] == "GR4-TPU"
+    assert scan.devices["BC:9A:78:56:34:12"]["name"] == "GR4-GPU"

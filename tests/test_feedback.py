@@ -4,7 +4,6 @@ whose back-edge value is a lax.scan carry, delayed N samples, persisting across
 scheduler steps."""
 
 import numpy as np
-from gnuradio4_tpu.utils.transfer import (host_array as to_host, safe_put as dev_put)
 import pytest
 
 import gnuradio4_tpu as gr
@@ -107,7 +106,7 @@ class TestFeedbackLoops:
         x = (0.25 * rng.standard_normal(4096)).astype(np.float32)
         g1, s1 = _agc_loop_graph(x, 0.01, delay=1)
         gr.Scheduler(g1, block_len=1024, pipeline_depth=1).run_and_wait()
-        mesh = Mesh(to_host(devs[:8]), ("sp",))
+        mesh = Mesh(np.asarray(devs[:8]), ("sp",))
         g2, s2 = _agc_loop_graph(x, 0.01, delay=1)
         gr.Scheduler(g2, block_len=1024, mesh=mesh,
                      pipeline_depth=1).run_and_wait()

@@ -1,15 +1,13 @@
-"""Equivalence of the three FIR lowering strategies (conv HLO, MXU matmul framing,
+"""Equivalence of the three FIR lowering strategies (conv HLO, matmul framing,
 FFT overlap-save) — all must match the NumPy reference within f32 tolerance.
 
-The equivalence asserts request ``precision="highest"`` explicitly: the
-production default rung 'high' is bf16x3 on the MXU — measured 1.3e-5
-relative ON-CHIP (scripts/tpu_precision_probe.py), which is its documented
-perf/accuracy trade, not an equivalence bug. Its contract is pinned by
+The equivalence asserts request ``precision="highest"`` explicitly: a lower
+rung on an accelerator is a documented perf/accuracy trade, not an
+equivalence bug. The 'high' rung's CPU contract is pinned by
 TestHighRungContract below (>= 90 dB), and the int8 rung by TestInt8Matmul."""
 
 import jax.numpy as jnp
 import numpy as np
-from gnuradio4_tpu.utils.transfer import (host_array as to_host, safe_put as dev_put)
 import pytest
 
 from gnuradio4_tpu.ops.fir import fir_apply, fir_init_state
@@ -24,10 +22,10 @@ def test_real_matches_reference(method, ntaps, rng):
     taps = rng.standard_normal(ntaps).astype(np.float32)
     x = rng.standard_normal(2048).astype(np.float32)
     ref = np.convolve(x.astype(np.float64), taps)[: len(x)]
-    y, _ = fir_apply(dev_put(x), dev_put(taps),
+    y, _ = fir_apply(jnp.asarray(x), jnp.asarray(taps),
                      fir_init_state(0, ntaps, jnp.float32), method=method,
                      precision="highest")
-    np.testing.assert_allclose(to_host(y), ref, atol=ntaps * 3e-6)
+    np.testing.assert_allclose(np.asarray(y), ref, atol=ntaps * 3e-6)
 
 
 @pytest.mark.parametrize("method", METHODS)
@@ -36,10 +34,10 @@ def test_complex_input_real_taps(method, rng):
     x = (rng.standard_normal(1024) + 1j * rng.standard_normal(1024)
          ).astype(np.complex64)
     ref = np.convolve(x.astype(np.complex128), taps)[: len(x)]
-    y, _ = fir_apply(dev_put(x), dev_put(taps),
+    y, _ = fir_apply(jnp.asarray(x), jnp.asarray(taps),
                      fir_init_state(0, 63, jnp.complex64), method=method,
                      precision="highest")
-    np.testing.assert_allclose(to_host(y), ref, atol=3e-4)
+    np.testing.assert_allclose(np.asarray(y), ref, atol=3e-4)
 
 
 @pytest.mark.parametrize("method", METHODS)
@@ -50,10 +48,10 @@ def test_complex_taps(method, rng):
          ).astype(np.complex64)
     ref = np.convolve(x.astype(np.complex128), taps.astype(np.complex128)
                       )[: len(x)]
-    y, _ = fir_apply(dev_put(x), dev_put(taps),
+    y, _ = fir_apply(jnp.asarray(x), jnp.asarray(taps),
                      fir_init_state(0, 31, jnp.complex64), method=method,
                      precision="highest")
-    np.testing.assert_allclose(to_host(y), ref, atol=3e-4)
+    np.testing.assert_allclose(np.asarray(y), ref, atol=3e-4)
 
 
 @pytest.mark.parametrize("method", METHODS)
@@ -62,10 +60,10 @@ def test_decimation(method, decim, rng):
     taps = rng.standard_normal(32).astype(np.float32)
     x = rng.standard_normal(1024).astype(np.float32)
     ref = np.convolve(x.astype(np.float64), taps)[: len(x)][::decim]
-    y, _ = fir_apply(dev_put(x), dev_put(taps),
+    y, _ = fir_apply(jnp.asarray(x), jnp.asarray(taps),
                      fir_init_state(0, 32, jnp.float32), decim=decim,
                      method=method, precision="highest")
-    np.testing.assert_allclose(to_host(y), ref, atol=2e-4)
+    np.testing.assert_allclose(np.asarray(y), ref, atol=2e-4)
 
 
 @pytest.mark.parametrize("method", METHODS)
@@ -76,9 +74,9 @@ def test_streaming_continuity(method, rng):
     state = fir_init_state(0, 65, jnp.float32)
     parts = []
     for chunk in x.reshape(4, 1024):
-        y, state = fir_apply(dev_put(chunk), dev_put(taps), state,
+        y, state = fir_apply(jnp.asarray(chunk), jnp.asarray(taps), state,
                              method=method, precision="highest")
-        parts.append(to_host(y))
+        parts.append(np.asarray(y))
     np.testing.assert_allclose(np.concatenate(parts), ref, atol=3e-4)
 
 
@@ -86,12 +84,12 @@ def test_streaming_continuity(method, rng):
 def test_multichannel(method, rng):
     taps = rng.standard_normal(17).astype(np.float32)
     x = rng.standard_normal((5, 512)).astype(np.float32)
-    y, _ = fir_apply(dev_put(x), dev_put(taps),
+    y, _ = fir_apply(jnp.asarray(x), jnp.asarray(taps),
                      fir_init_state(5, 17, jnp.float32), method=method,
                      precision="highest")
     for c in range(5):
         ref = np.convolve(x[c].astype(np.float64), taps)[:512]
-        np.testing.assert_allclose(to_host(y)[c], ref, atol=2e-4)
+        np.testing.assert_allclose(np.asarray(y)[c], ref, atol=2e-4)
 
 
 @pytest.mark.parametrize("method", ["matmul", "fft"])
@@ -100,11 +98,11 @@ def test_odd_sizes(method, rng):
     taps = rng.standard_normal(40).astype(np.float32)
     x = rng.standard_normal(700).astype(np.float32)
     ref = np.convolve(x.astype(np.float64), taps)[:700]
-    y, _ = fir_apply(dev_put(x), dev_put(taps),
+    y, _ = fir_apply(jnp.asarray(x), jnp.asarray(taps),
                      fir_init_state(0, 40, jnp.float32), method=method,
                      precision="highest")
-    assert to_host(y).shape == (700,)
-    np.testing.assert_allclose(to_host(y), ref, atol=2e-4)
+    assert np.asarray(y).shape == (700,)
+    np.testing.assert_allclose(np.asarray(y), ref, atol=2e-4)
 
 
 class TestInt8Matmul:
@@ -112,10 +110,10 @@ class TestInt8Matmul:
         taps = rng.standard_normal(127).astype(np.float32)
         x = rng.standard_normal(4096).astype(np.float32)
         ref = np.convolve(x.astype(np.float64), taps)[: len(x)]
-        y, _ = fir_apply(dev_put(x), taps,
+        y, _ = fir_apply(jnp.asarray(x), taps,
                          fir_init_state(0, 127, jnp.float32),
                          method="matmul_int8")
-        err = to_host(y) - ref
+        err = np.asarray(y) - ref
         snr = 10 * np.log10(np.mean(ref ** 2) / np.mean(err ** 2))
         assert snr > 40.0, f"int8 SNR {snr:.1f} dB"
 
@@ -126,10 +124,10 @@ class TestInt8Matmul:
              ).astype(np.complex64)
         ref = np.convolve(x.astype(np.complex128), taps.astype(np.complex128)
                           )[: len(x)]
-        y, _ = fir_apply(dev_put(x), taps,
+        y, _ = fir_apply(jnp.asarray(x), taps,
                          fir_init_state(0, 63, jnp.complex64),
                          method="matmul_int8")
-        err = np.abs(to_host(y) - ref)
+        err = np.abs(np.asarray(y) - ref)
         snr = 10 * np.log10(np.mean(np.abs(ref) ** 2) / np.mean(err ** 2))
         assert snr > 38.0, f"int8 SNR {snr:.1f} dB"
 
@@ -137,17 +135,17 @@ class TestInt8Matmul:
         taps = rng.standard_normal(32).astype(np.float32)
         x = rng.standard_normal(2048).astype(np.float32)
         ref = np.convolve(x.astype(np.float64), taps)[: len(x)][::4]
-        y, _ = fir_apply(dev_put(x), taps,
+        y, _ = fir_apply(jnp.asarray(x), taps,
                          fir_init_state(0, 32, jnp.float32), decim=4,
                          method="matmul_int8")
-        err = to_host(y) - ref
+        err = np.asarray(y) - ref
         snr = 10 * np.log10(np.mean(ref ** 2) / (np.mean(err ** 2) + 1e-30))
         assert snr > 40.0
 
 
 class TestFreqXlatingGolden:
     """Round-4 rotate-then-filter path: FreqXlatingFir's complex-input lowering
-    (input NCO rotation + REAL-tap FIR — half the MXU dots) must match the
+    (input NCO rotation + REAL-tap FIR — half the matmul dots) must match the
     float64 textbook freq-xlating form (heterodyned taps + output de-rotation)
     including across decimation, step boundaries, and the real-input path."""
 
@@ -201,7 +199,7 @@ class TestFreqXlatingGolden:
 
 
 def test_bf16_one_pass_snr(rng, monkeypatch):
-    """GR4TPU_FIR_PRECISION=bf16 (one MXU pass, f32 accumulation): ~52 dB SNR
+    """GR4_FIR_PRECISION=bf16 (bf16 operands, f32 accumulation): ~52 dB SNR
     on a 127-tap complex chain — the middle rung of the precision ladder
     (int8 ~40 dB < bf16 ~50 dB < high ~f32)."""
     import gnuradio4_tpu.ops.fir as fir_mod
@@ -210,9 +208,9 @@ def test_bf16_one_pass_snr(rng, monkeypatch):
     x = (rng.standard_normal(1 << 14) + 1j * rng.standard_normal(1 << 14)
          ).astype(np.complex64)
     ref = np.convolve(x.astype(np.complex128), taps)[: len(x)]
-    y, _ = fir_apply(dev_put(x), taps, fir_init_state(0, 127, jnp.complex64),
+    y, _ = fir_apply(jnp.asarray(x), taps, fir_init_state(0, 127, jnp.complex64),
                      method="matmul")
-    err = np.abs(to_host(y) - ref)
+    err = np.abs(np.asarray(y) - ref)
     snr = 10 * np.log10(np.mean(np.abs(ref) ** 2) / np.mean(err ** 2))
     assert snr > 45.0, f"bf16 SNR {snr:.1f} dB"
 
@@ -268,9 +266,11 @@ def test_explicit_precision_unsatisfiable_raises(rng):
 
 
 class TestHighRungContract:
-    """The production default rung 'high' (bf16x3 on the MXU): >= 90 dB vs
-    the f64 reference on every rail combination — the measured on-chip
-    figure is ~98 dB (einsum relerr 1.3e-5); CPU runs it exact."""
+    """The 'high' rung on the CPU: >= 90 dB vs the f64 reference on every
+    rail combination (the CPU runs every rung in float32). This contract is
+    the CPU's only: a GPU runs 'high' in TF32, about 76 dB for FIR127 on an
+    H100 (tests/test_gpu.py pins that), which is why 'highest' is the
+    default rung."""
 
     def _snr(self, y, ref):
         err = np.abs(np.asarray(y, dtype=np.complex128) - ref)
@@ -281,10 +281,10 @@ class TestHighRungContract:
         taps = rng.standard_normal(127).astype(np.float32)
         x = rng.standard_normal(4096).astype(np.float32)
         ref = np.convolve(x.astype(np.float64), taps)[: len(x)]
-        y, _ = fir_apply(dev_put(x), taps,
+        y, _ = fir_apply(jnp.asarray(x), taps,
                          fir_init_state(0, 127, jnp.float32),
                          method="matmul", precision="high")
-        assert self._snr(to_host(y), ref) > 90.0
+        assert self._snr(np.asarray(y), ref) > 90.0
 
     def test_complex(self, rng):
         taps = (rng.standard_normal(63) + 1j * rng.standard_normal(63)
@@ -293,7 +293,7 @@ class TestHighRungContract:
              ).astype(np.complex64)
         ref = np.convolve(x.astype(np.complex128),
                           taps.astype(np.complex128))[: len(x)]
-        y, _ = fir_apply(dev_put(x), taps,
+        y, _ = fir_apply(jnp.asarray(x), taps,
                          fir_init_state(0, 63, jnp.complex64),
                          method="matmul", precision="high")
-        assert self._snr(to_host(y), ref) > 90.0
+        assert self._snr(np.asarray(y), ref) > 90.0

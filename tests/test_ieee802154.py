@@ -68,7 +68,7 @@ class TestWaveform:
         assert env.min() > 0.6 and env.max() < 1.2
 
     def test_clean_loop_exact(self):
-        psdu = build_data_frame(b"ZIGBEE-TPU", seq=7, dst_addr=0x1234,
+        psdu = build_data_frame(b"ZIGBEE-GPU", seq=7, dst_addr=0x1234,
                                 src_addr=0x00AB)
         iq = ieee802154_modulate(psdu, sps=SPS)
         frames = decode_stream(iq, sps=SPS)
@@ -77,7 +77,7 @@ class TestWaveform:
         assert f["fcs_ok"] and f["chip_errors"] == 0
         assert f["frame_type"] == "data" and f["seq"] == 7
         assert f["dst_addr"] == 0x1234 and f["src_addr"] == 0x00AB
-        assert f["payload"] == b"ZIGBEE-TPU"
+        assert f["payload"] == b"ZIGBEE-GPU"
 
     def test_loop_with_noise_phase_and_padding(self):
         psdu = build_data_frame(b"NOISY", seq=1)

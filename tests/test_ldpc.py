@@ -170,7 +170,7 @@ def test_decoder_sp_sharded_bit_exact():
 
 
 def test_dense_decoder_matches_segment_formulation():
-    """The TPU dense check-layout decoder (one-hot matmuls, per-row
+    """The accelerator dense check-layout decoder (one-hot matmuls, per-row
     two-minimum — no scatter/segment HLOs) must bit-match the flat
     segment-op reference on identical LLRs."""
     from gnuradio4_tpu.ops.ldpc import (LdpcGraph, encode, make_ldpc,

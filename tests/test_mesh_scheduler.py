@@ -379,3 +379,42 @@ class TestResamplerSpSharding:
                      pipeline_depth=1).run_and_wait()
         assert s2.data().shape == s1.data().shape
         np.testing.assert_allclose(s2.data(), s1.data(), atol=1e-6)
+
+
+def _placement_graph(resident: bool):
+    rng = np.random.default_rng(9)
+    n = 64 * 256 * 4
+    iq = (rng.standard_normal(n) + 1j * rng.standard_normal(n)
+          ).astype(np.complex64)
+    g = gr.Graph()
+    src = VectorSource(iq, device_resident=resident)
+    g.connect_chain(src, PFBChannelizer(n_channels=64, taps_per_phase=4),
+                    QuadratureDemod(gain=1.0), snk := VectorSink())
+    return g, snk
+
+
+@pytest.mark.parametrize("axes,shape", [(("sp",), (4,)), (("chan",), (4,)),
+                                        (("sp", "chan"), (2, 2))])
+@pytest.mark.parametrize("batch_steps", [1, 2])
+def test_mesh_step_compiles_once_and_copies_nothing(axes, shape, batch_steps):
+    """States and params start where the step leaves them (replicated on the
+    mesh): the second dispatch must not compile the step again for a new
+    input placement, and no dispatch copies params or states between
+    devices."""
+    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(shape), axes)
+    g_ref, snk_ref = _placement_graph(resident=True)
+    gr.Scheduler(g_ref, block_len=64 * 256,
+                 batch_steps=batch_steps).run_and_wait()
+    g, snk = _placement_graph(resident=True)
+    sched = gr.Scheduler(g, block_len=64 * 256, mesh=mesh,
+                         batch_steps=batch_steps)
+    sched.init()
+    more = sched.step_once()
+    with jax.transfer_guard_device_to_device("disallow"):
+        while more:
+            more = sched.step_once()
+        jax.block_until_ready(sched._states)
+    assert sched.compiled.step_fn._cache_size() == 1
+    for leaf in jax.tree_util.tree_leaves(sched._states):
+        assert leaf.sharding.is_fully_replicated
+    np.testing.assert_allclose(snk.data(), snk_ref.data(), atol=1e-5)

@@ -66,7 +66,7 @@ def test_from_graph_domain_stage_cuts(devices):
 
     g, src, fir, mul = build()
     g.connect(src, fir)
-    g.connect(fir, mul, domain="tpu:xla:1")
+    g.connect(fir, mul, domain="gpu:xla:1")
     pipe = StagePipeline.from_graph(g, block_len=4096, sample_rate=48000.0,
                                     devices=devices[:2])
     assert len(pipe.stages) == 2

@@ -24,7 +24,7 @@ class TestCrc32c:
         assert crc32c(b"123456789") == 0xE3069283
 
     def test_incremental_vs_whole(self):
-        data = b"hello gnuradio tpu world"
+        data = b"hello gnuradio gpu world"
         assert crc32c(data) == crc32c(data[8:], crc32c(data[:8]))
 
 

@@ -36,12 +36,12 @@ class TestBch:
 
 class TestTransmission:
     def test_loopback(self):
-        bits = pocsag.encode_transmission(1234567, 2, "GR4-TPU PAGING OK")
+        bits = pocsag.encode_transmission(1234567, 2, "GR4-GPU PAGING OK")
         pages = pocsag.decode_transmission(bits)
         assert len(pages) == 1
         assert pages[0]["ric"] == 1234567
         assert pages[0]["function"] == 2
-        assert pages[0]["message"] == "GR4-TPU PAGING OK"
+        assert pages[0]["message"] == "GR4-GPU PAGING OK"
 
     def test_two_bit_errors_per_codeword_still_decode(self):
         rng = np.random.default_rng(1)
@@ -66,7 +66,7 @@ class TestPocsagGraphChain:
         """NRZ FSK (±4.5 kHz at 1200 bps, 38.4 ksps) → QuadratureDemod →
         PocsagDecoder, with AWGN."""
         rng = np.random.default_rng(2)
-        bits = pocsag.encode_transmission(423133, 3, "CALL THE TPU ROOM")
+        bits = pocsag.encode_transmission(423133, 3, "CALL THE GPU ROOM")
         sps, dev = 32, 4500.0
         fs = 1200.0 * sps
         # POCSAG convention: bit 0 = +deviation (high), bit 1 = −deviation
@@ -86,4 +86,4 @@ class TestPocsagGraphChain:
         assert len(dec.pages) == 1, dec.pages
         assert dec.pages[0]["ric"] == 423133
         assert dec.pages[0]["function"] == 3
-        assert dec.pages[0]["message"] == "CALL THE TPU ROOM"
+        assert dec.pages[0]["message"] == "CALL THE GPU ROOM"

@@ -23,7 +23,7 @@ class TestRdsCoding:
             assert rds.block_syndrome(blk ^ (1 << i)) != rds.OFFSET_A
 
     def test_bit_level_loopback(self):
-        groups = (rds.make_0a_groups(0x1234, 5, "GR4-TPU!")
+        groups = (rds.make_0a_groups(0x1234, 5, "GR4-GPU!")
                   + rds.make_2a_groups(0x1234, 5, "HELLO"))
         bits = np.concatenate([np.asarray(g, np.uint8) for g in groups])
         diff = rds.differential_encode(bits)
@@ -67,7 +67,7 @@ def _run_chain(mpx, fs):
 
 class TestRdsReceiverChain:
     FS = 228000.0
-    PI, PTY, PS, RT = 0x52A1, 9, "GR4-TPU!", "HELLO FROM THE TPU SIDE"
+    PI, PTY, PS, RT = 0x52A1, 9, "GR4-GPU!", "HELLO FROM THE GPU SIDE"
 
     def _groups(self):
         # PS groups repeated for loop convergence; RT twice so the tail
@@ -106,15 +106,15 @@ class TestRdsSourceExample:
         dec = [b for b in sched.graph.blocks if b.name == "rds"][0]
         dec._process()
         assert dec.pi == 0x52A1
-        assert dec.ps == "GR4-TPU!"
-        assert dec.radiotext == "HELLO FROM THE TPU SIDE"
+        assert dec.ps == "GR4-GPU!"
+        assert dec.radiotext == "HELLO FROM THE GPU SIDE"
         assert len(dec.groups) > 100
 
 
 class TestVersionBGroups:
     def test_0b_ps_characters_from_block4(self):
         # 0B groups repeat the PI in block 3; PS chars are in block 4
-        pi, pty, ps = 0x52A1, 9, "GR4-TPU!"
+        pi, pty, ps = 0x52A1, 9, "GR4-GPU!"
         groups = []
         for addr in range(4):
             b2 = (0x0 << 12) | (1 << 11) | ((pty & 0x1F) << 5) | addr

@@ -77,9 +77,9 @@ class TestQaFilterGolden:
 
     def test_iir_second_order_forms_agree(self):
         """The reference checks 4 direct forms agree within 1e-5 on the exact
-        Butterworth-ish biquad (qa_filter.cpp:95-126); here all three engines
-        (sequential scan, O(log T) parallel partial fractions, Pallas VMEM
-        cascade) must match the double-precision reference recurrence."""
+        Butterworth-ish biquad (qa_filter.cpp:95-126); here both engines
+        (sequential scan, O(log T) parallel partial fractions) must match the
+        double-precision reference recurrence."""
         b = (0.020083365564211, 0.040166731128423, 0.020083365564211)
         a = (1.0, -1.561018075800718, 0.641351538057563)
         # double-precision direct-form reference
@@ -91,7 +91,7 @@ class TestQaFilterGolden:
             yref[n] = (b[0] * x0 + b[1] * x1 + b[2] * x2
                        - a[1] * (yref[n - 1] if n >= 1 else 0.0)
                        - a[2] * (yref[n - 2] if n >= 2 else 0.0))
-        for engine in ("scan", "parallel", "pallas"):
+        for engine in ("scan", "parallel"):
             iir = gr.global_registry.create("IirFilter", b=b, a=a,
                                             engine=engine)
             y = _run_chain(iir, STEP20)

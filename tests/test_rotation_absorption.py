@@ -7,7 +7,7 @@ def _build_and_run(monkeypatch, absorb: bool, output="magnitude"):
     import gnuradio4_tpu as gr
     from gnuradio4_tpu.blocks.filter import FreqXlatingFir
     if not absorb:
-        monkeypatch.setenv("GR4TPU_NO_ROTATION_ABSORB", "1")
+        monkeypatch.setenv("GR4_NO_ROTATION_ABSORB", "1")
     fs, fc = 1e6, 123e3
     from gnuradio4_tpu.ops import filter_design as fd
     taps = fd.design_fir("lowpass", 63, sample_rate=fs, f_low=100e3

@@ -128,7 +128,7 @@ class TestCwLoopback:
         assert d.text == msg
 
     def test_graph_chain(self):
-        msg = "HELLO TPU 73"
+        msg = "HELLO GPU 73"
         g = gr.Graph()
         src = g.emplace("CwSource", text=msg, wpm=25.0, frequency=700.0)
         dec = g.emplace("CwDecoder")

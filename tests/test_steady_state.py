@@ -1,7 +1,7 @@
 """Steady-state discipline (≈ reference qa_NoHeapScheduler: a graph must run
 allocation-free once warmed up) + externalStep-style driving.
 
-The TPU analogs of "no heap in steady state": (1) ZERO recompiles after
+The device analogs of "no heap in steady state": (1) ZERO recompiles after
 warm-up — the jitted step is traced once and every subsequent step is a cache
 hit; (2) bounded host allocation per step — the pump must not accumulate or
 churn large host buffers.

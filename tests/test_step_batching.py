@@ -1,7 +1,6 @@
 """Step batching (round-5): ``Scheduler(batch_steps=S)`` fuses S logical
 sub-steps into ONE jitted dispatch via lax.scan, amortizing the per-dispatch
-host/relay floor (the round-4 sweep measured ~6 ms/dispatch dominating small
-blocks — SWEEP_r04.json wbfm 2^18 vs 2^23). The analog of the reference
+host floor, which dominates small blocks. The analog of the reference
 amortizing per-work() overhead in its hot loop (Scheduler.hpp:722).
 
 Semantics pinned here:
